@@ -1,0 +1,93 @@
+"""Command line for the torch port: the `map` subcommand.
+
+  python -m bucketmap_tpu_torch.cli map -i IND -q reads.fastq -o out.sam \\
+      [--index-dir DIR] [--batch-size N] [--device cuda|cpu] [params]
+
+Same flags as `bucketmap_tpu.cli map`, plus --device (default cuda).
+With --device cuda and no usable CUDA device it fails; it maps on the
+CPU only when --device cpu is given. Index artifacts are the JAX
+package's (`bucketmap_tpu.cli index` builds them).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+from bucketmap_tpu.cli import _add_param_flags
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="bucketmap-tpu-torch",
+        description="DNA read mapper, PyTorch/CUDA port (align-free)")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+    p_map = sub.add_parser("map", help="map reads to SAM")
+    p_map.add_argument("-q", "--query-file", required=True)
+    p_map.add_argument("-i", "--index-indicator", required=True)
+    p_map.add_argument("-o", "--output-file", required=True)
+    p_map.add_argument("--index-dir", default=".")
+    p_map.add_argument("-g", "--genome", default=None,
+                       help="FASTA (only needed when loading a reference-format index)")
+    p_map.add_argument("--align", action="store_true",
+                       help="alignment with CIGARs (not ported yet)")
+    p_map.add_argument("--batch-size", type=int, default=1024)
+    p_map.add_argument("--device", default="cuda",
+                       help="torch device to map on (default cuda)")
+    _add_param_flags(p_map)
+    args = parser.parse_args(argv)
+
+    import torch
+
+    from bucketmap_tpu.cli import _config_from
+    from bucketmap_tpu.index import builder
+    from bucketmap_tpu_torch.mapper.pipeline import BucketMapPipeline
+
+    try:
+        device = torch.device(args.device)
+    except RuntimeError as e:
+        print(f"[ERROR]\t\tbad --device {args.device!r}: {e}", file=sys.stderr)
+        return 2
+    if device.type == "cuda" and not torch.cuda.is_available():
+        print("[ERROR]\t\tCUDA is not available (torch.cuda.is_available() "
+              "is false); pass --device cpu to map on the CPU.",
+              file=sys.stderr)
+        return 1
+    if args.align:
+        print("[ERROR]\t\t--align is not ported to the torch package yet "
+              "(ROADMAP queue 1 item 10).", file=sys.stderr)
+        return 2
+
+    cfg = _config_from(args)
+    base = os.path.join(args.index_dir, args.index_indicator)
+    if os.path.exists(base + ".bmtpu.json"):
+        index = builder.load_index(args.index_dir, args.index_indicator)
+    elif os.path.exists(base + ".qgram"):
+        index = builder.import_reference_format(
+            args.index_dir, args.index_indicator, cfg, args.genome)
+    else:
+        print(f"[ERROR]\t\tno index named {args.index_indicator} in "
+              f"{args.index_dir}", file=sys.stderr)
+        return 1
+    pipe = BucketMapPipeline(index, device=device, batch_size=args.batch_size,
+                             pair_batch=args.batch_size)
+    t0 = time.time()
+    stats = pipe.map_fastq(args.query_file, args.output_file)
+    dt = time.time() - t0
+    print(f"[BENCHMARK]\tElapsed time for bucket mapping: {dt:.2f} s "
+          f"({dt*1e6/max(1,stats.num_reads):.1f} us/seq) on {device}.")
+    print(f"[BENCHMARK]\tReads with at least one candidate bucket: "
+          f"{stats.reads_with_candidates} "
+          f"({100.0*stats.reads_with_candidates/max(1,stats.num_reads):.2f}%).")
+    print(f"[BENCHMARK]\tTotal mapped locations: {stats.mapped_locations} "
+          f"({stats.mapped_locations/max(1,stats.num_reads):.3f} per sequence).")
+    if device.type == "cuda":
+        print(f"[BENCHMARK]\tDevice memory peak: "
+              f"{torch.cuda.max_memory_allocated(device)} bytes.")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,108 @@
+"""On-device construction of the tiled packed fine index.
+
+Counterpart of `bucketmap_tpu/index/device_build.py:
+build_fine_index_on_device`. Per chunk of buckets: unpack the 2-bit
+sequences, hash every k-mer, stable-sort the hashes carrying their
+positions (invalid positions hold the 0xFFFFFFFF sentinel and sort
+last), pack each slot as (position << low_bits) | low bits of the hash,
+and find each 12-bit prefix's first slot with a batched searchsorted.
+The slots are stored tiled as (N, Tp, 128) with at least two spare
+128-slot rows, so a 3-row fine window never leaves a bucket's table;
+the slot order is the host build's (np.argsort(kind="stable")).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from bucketmap_tpu.index.builder import BucketIndex
+from bucketmap_tpu_torch.device import i64_to_i32, resolve_device, upload_u32
+from bucketmap_tpu_torch.ops.encoding import kmer_hashes, unpack_2bit
+
+SENTINEL = 0xFFFFFFFF
+
+
+def tiled_rows(lpos: int) -> int:
+    """Sub-tile rows per bucket: whole 128-slot rows plus 2 spare, rounded
+    up to a multiple of 8 (device_build.py:112)."""
+    return -(-(-(-lpos // 128) + 2) // 8) * 8
+
+
+def _build_chunk(packed_rows, lengths_rows, k: int, lb: int, low_bits: int):
+    """(R, Wb) packed buckets -> (fine_packed (R, lpos) int32, fine_ptab
+    (R, 4097) int32, count of real slots equal to the sentinel, max
+    segment length)."""
+    dev = packed_rows.device
+    codes = unpack_2bit(packed_rows, lb)
+    h = kmer_hashes(codes, k)                                   # (R, lpos)
+    del codes
+    pos = torch.arange(h.shape[1], dtype=torch.int64, device=dev)
+    invalid = pos[None, :] > (lengths_rows[:, None].to(torch.int64) - k)
+    h = torch.where(invalid, SENTINEL, h)
+    sh, spos = torch.sort(h, dim=1, stable=True)
+    del h, invalid
+    sinvalid = sh == SENTINEL
+    slots = ((spos << low_bits) & SENTINEL) | (sh & ((1 << low_bits) - 1))
+    # a real slot equal to the sentinel would read as "no occurrence"
+    n_bad = ((slots == SENTINEL) & ~sinvalid).sum()
+    fine_packed = i64_to_i32(torch.where(sinvalid, SENTINEL, slots))
+    prefix = torch.where(sinvalid, 4096, sh >> low_bits)
+    pvals = torch.arange(4097, dtype=torch.int64, device=dev)
+    ptab = torch.searchsorted(prefix.contiguous(),
+                              pvals.expand(prefix.shape[0], 4097).contiguous(),
+                              side="left")
+    max_seg = (ptab[:, 1:] - ptab[:, :-1]).max()
+    return fine_packed, ptab.to(torch.int32), n_bad, max_seg
+
+
+def build_fine_index_on_device(index: BucketIndex, device,
+                               row_chunk: int = 1024):
+    """Device-resident (fine_packed (N, Tp, 128) int32, fine_ptab (N, 4097)
+    int32, search_steps, low_bits) built from index.buckets_packed, or
+    None when the packed encoding does not apply (k >= 16, 2k-12 outside
+    [0, 16], or positions that do not fit 32 - low_bits bits)."""
+    dev = resolve_device(device)
+    cfg = index.config
+    k = cfg.query_seed
+    if k >= 16:
+        return None
+    n = index.n_buckets
+    lb = index.buckets_packed.shape[1] * 16
+    lpos = lb - k + 1
+    low_bits = 2 * k - 12
+    if not (0 <= low_bits <= 16) or lpos > (1 << (32 - low_bits)):
+        return None
+    Tp = tiled_rows(lpos)
+    fp = torch.full((n, Tp * 128), -1, dtype=torch.int32, device=dev)
+    pt = torch.empty((n, 4097), dtype=torch.int32, device=dev)
+    lengths = torch.from_numpy(
+        np.asarray(index.bucket_lengths, np.int64)).to(dev)
+    n_bad = torch.zeros((), dtype=torch.int64, device=dev)
+    max_seg = torch.ones((), dtype=torch.int64, device=dev)
+    for s in range(0, n, row_chunk):
+        e = min(s + row_chunk, n)
+        rows = upload_u32(np.asarray(index.buckets_packed[s:e]), dev)
+        fpc, ptc, bad, ms = _build_chunk(rows, lengths[s:e], k, lb, low_bits)
+        fp[s:e, :lpos] = fpc
+        pt[s:e] = ptc
+        n_bad += bad
+        max_seg = torch.maximum(max_seg, ms)
+        del fpc, ptc, rows
+    if int(n_bad):
+        raise ValueError(f"{int(n_bad)} fine slots equal the 0xFFFFFFFF "
+                         f"sentinel; the packed fine index cannot hold them")
+    steps = int(max(1, int(max_seg))).bit_length()
+    return fp.reshape(n, Tp, 128), pt, steps, low_bits
+
+
+def check_fine_sentinel(fine_packed: np.ndarray, fine_ptab: np.ndarray) -> None:
+    """Raise when a real slot of a host (N, Tp, 128) table is 0xFFFFFFFF:
+    slots [0, ptab[:, 4096]) of each bucket are real."""
+    n = fine_packed.shape[0]
+    flat = np.asarray(fine_packed).reshape(n, -1).view(np.uint32)
+    real = np.arange(flat.shape[1])[None, :] < np.asarray(fine_ptab)[:, 4096:4097]
+    bad = int(((flat == np.uint32(SENTINEL)) & real).sum())
+    if bad:
+        raise ValueError(f"{bad} fine slots equal the 0xFFFFFFFF sentinel; "
+                         f"the packed fine index cannot hold them")

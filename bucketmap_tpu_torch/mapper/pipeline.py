@@ -1,0 +1,483 @@
+"""End-to-end align-free mapping on torch: FASTQ -> device step -> SAM.
+
+Counterpart of `bucketmap_tpu/mapper/pipeline.py:BucketMapPipeline`,
+align-free only. Reads are cut into read_len segments (long reads into
+num_segment_samples windows), mapped in fixed-size batches through the
+device step, decoded on the host, merged per read (filter_best_locations
+semantics) and written as SAM through the JAX package's SamWriter, so
+the bytes match the reference's.
+"""
+
+from __future__ import annotations
+
+import bisect
+import dataclasses
+import queue
+import threading
+import time
+
+import numpy as np
+
+from bucketmap_tpu.index.builder import BucketIndex
+from bucketmap_tpu.io.fastq import ReadBatch, iter_fastq_batches
+from bucketmap_tpu.io.sam import SamWriter
+from bucketmap_tpu.ops.sampler import sample_deterministic
+from bucketmap_tpu_torch.device import resolve_device
+from bucketmap_tpu_torch.mapper.device_pipeline import DeviceMapper
+
+
+@dataclasses.dataclass
+class Location:
+    bucket: int
+    offset: int          # read start within the bucket
+    seg_offset: int
+    votes: int
+    is_orig: bool
+
+
+def filter_best_locations(locs: list[Location], read_length: int,
+                          indel_rate: float) -> list[Location]:
+    """_filter_best_locations (bucket_locator.h:350-405): merge votes onto
+    every earlier location with the same (bucket, strand) within
+    +-read_len*indel_rate, in sorted key order, then keep every location
+    with the max total votes."""
+    loc_votes: dict[tuple[int, int, bool], int] = {}
+    keys: list[tuple[int, int, bool]] = []   # kept sorted
+    for loc in locs:
+        key = (loc.bucket, loc.offset, loc.is_orig)
+        if not loc_votes:
+            loc_votes[key] = loc.votes
+            keys.append(key)
+        else:
+            lo = int(loc.offset - read_length * indel_rate)
+            hi = int(loc.offset + read_length * indel_rate)
+            a = bisect.bisect_left(keys, (loc.bucket, lo, False))
+            b = bisect.bisect_right(keys, (loc.bucket, hi, True))
+            found = False
+            for k in keys[a:b]:
+                if lo <= k[1] <= hi and k[2] == loc.is_orig:
+                    loc_votes[k] += loc.votes
+                    found = True
+            if not found:
+                if key in loc_votes:
+                    loc_votes[key] += loc.votes
+                else:
+                    loc_votes[key] = loc.votes
+                    bisect.insort(keys, key)
+    best: list[Location] = []
+    max_votes = 0
+    for k in keys:
+        v = loc_votes[k]
+        if v > max_votes:
+            best, max_votes = [], v
+        if v == max_votes:
+            best.append(Location(k[0], k[1], 0, v, k[2]))
+    return best
+
+
+@dataclasses.dataclass
+class MapStats:
+    num_reads: int = 0
+    num_bases: int = 0
+    reads_with_candidates: int = 0
+    candidate_pairs: int = 0
+    mapped_locations: int = 0
+    coarse_seconds: float = 0.0
+    fine_seconds: float = 0.0
+    output_seconds: float = 0.0
+
+
+class BucketMapPipeline:
+    def __init__(self, index: BucketIndex, *, device, align: bool = False,
+                 batch_size: int = 512, pair_batch: int = 256,
+                 pairs_per_read: int = 4):
+        if align:
+            raise NotImplementedError(
+                "align mode is not ported yet (ROADMAP queue 1 item 10, "
+                "ops/align.py:BandedAligner)")
+        self.index = index
+        self.cfg = index.config
+        self.align = False
+        self.batch_size = batch_size
+        self.device = DeviceMapper(index, resolve_device(device),
+                                   batch_size=batch_size,
+                                   pairs_per_read=pairs_per_read,
+                                   vote_chunk=min(4096, pair_batch, batch_size))
+        self._bucket_sam_offset = index.ref_offset_of_bucket()
+
+    # ------------------------------------------------------------------
+    def _all_segments(self, batch: ReadBatch):
+        """Fixed-shape segments of all reads: codes/quals (S, read_len),
+        seg_len, seg_read, seg_off. Reads up to 2*read_len are queried on
+        their first read_len bases; longer reads expand to
+        num_segment_samples windows (q_gram_mapper.h:510-516)."""
+        cfg = self.cfg
+        rl = cfg.read_len
+        lengths = batch.lengths
+        n = batch.num_reads
+        long_mask = lengths > 2 * rl
+
+        if not long_mask.any():
+            seg_read = np.arange(n, dtype=np.int32)
+            seg_off = np.zeros(n, dtype=np.int32)
+            seg_len = np.minimum(lengths, rl).astype(np.int32)
+            if batch.codes.shape[1] == rl:
+                codes, quals = batch.codes, batch.quals
+            else:
+                width = min(batch.codes.shape[1], rl)
+                codes = np.zeros((n, rl), np.uint8)
+                quals = np.zeros((n, rl), np.uint8)
+                codes[:, :width] = batch.codes[:, :width]
+                quals[:, :width] = batch.quals[:, :width]
+            return codes, quals, seg_len, seg_read, seg_off
+
+        short_idx = np.nonzero(~long_mask)[0]
+        rows = [short_idx]
+        offs = [np.zeros(len(short_idx), np.int64)]
+        for r in np.nonzero(long_mask)[0]:
+            starts = sample_deterministic(cfg.num_segment_samples,
+                                          int(lengths[r]) - rl - 1)
+            rows.append(np.full(len(starts), r, np.int64))
+            offs.append(starts.astype(np.int64))
+        seg_read = np.concatenate(rows)
+        seg_off = np.concatenate(offs)
+
+        seg_len = np.minimum(lengths[seg_read] - seg_off, rl).astype(np.int32)
+        col = np.arange(rl)
+        src = seg_off[:, None] + col[None, :]
+        mask = col[None, :] < seg_len[:, None]
+        src = np.where(mask, src, 0)
+        codes = np.where(mask, batch.codes[seg_read[:, None], src], 0).astype(np.uint8)
+        quals = np.where(mask, batch.quals[seg_read[:, None], src], 0).astype(np.uint8)
+        return (codes, quals, seg_len, seg_read.astype(np.int32),
+                seg_off.astype(np.int32))
+
+    # ------------------------------------------------------------------
+    def locate_chunks(self, batch: ReadBatch, stats: MapStats):
+        """Generator of per-dispatch location chunks, each the complete
+        location set of a contiguous read range (dispatch bounds never
+        split a read's segments): (read, bucket, offset, votes, is_orig,
+        seg_offset) sorted by (read, bucket, original strand first)."""
+        cfg = self.cfg
+        n = batch.num_reads
+        t0 = time.perf_counter()
+        codes, quals, seg_len, seg_read, seg_off = self._all_segments(batch)
+        if not np.all(seg_read[:-1] <= seg_read[1:]):
+            order = np.argsort(seg_read, kind="stable")
+            codes, quals = codes[order], quals[order]
+            seg_len, seg_read, seg_off = (seg_len[order], seg_read[order],
+                                          seg_off[order])
+        S = len(seg_read)
+        bs = self.batch_size
+        assert bs >= cfg.num_segment_samples
+        bounds = []
+        s = 0
+        while s < S:
+            e = min(s + bs, S)
+            if e < S and seg_read[e] == seg_read[e - 1]:
+                e_adj = int(np.searchsorted(seg_read, seg_read[e], "left"))
+                if e_adj > s:
+                    e = e_adj
+            bounds.append((s, e))
+            s = e
+        stats.coarse_seconds += time.perf_counter() - t0
+
+        reads_with_cand = np.zeros(n, dtype=bool)
+        for s, e in bounds:
+            t0 = time.perf_counter()
+            host = self._run(codes, quals, seg_len, s, e)
+            stats.fine_seconds += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            stats.candidate_pairs += int(host["total_valid"])
+            counts = host["counts"][: e - s]
+            reads_with_cand[seg_read[s + np.nonzero(counts.sum(axis=1) > 0)[0]]] = True
+            if self._overflow(host):
+                # lane/output budget overflow (repetitive genomes): redo
+                # the batch split in half; the per-read budget doubles
+                chunks = self._locate_split(batch, seg_read, seg_off, seg_len,
+                                            codes, quals, s, e)
+            else:
+                chunks = [self._extract_chunk(host, s, e, batch, seg_read,
+                                              seg_off, seg_len)]
+            r = np.concatenate([c[0] for c in chunks]).astype(np.int64)
+            bk = np.concatenate([c[1] for c in chunks])
+            off = np.concatenate([c[2] for c in chunks])
+            votes = np.concatenate([c[3] for c in chunks]).astype(np.int64)
+            orig = np.concatenate([c[4] for c in chunks])
+            so = np.concatenate([c[5] for c in chunks]).astype(np.int64)
+            order = np.lexsort((~orig, bk, r))
+            stats.fine_seconds += time.perf_counter() - t0
+            yield (r[order], bk[order], off[order], votes[order],
+                   orig[order], so[order])
+        stats.reads_with_candidates += int(reads_with_cand.sum())
+        stats.num_reads += n
+        stats.num_bases += int(batch.lengths.sum())
+
+    def _overflow(self, host) -> bool:
+        return (int(host["local_valid"].max()) > self.device.lane_budget
+                or int(host["n_accept"].max()) > self.device.out_cap)
+
+    def _run(self, codes, quals, seg_len, s, e) -> dict:
+        """Pad segment rows [s, e) to the batch size, run the step and
+        decode its result on the host."""
+        bs = self.batch_size
+        pad = bs - (e - s)
+        c, q, sl = codes[s:e], quals[s:e], seg_len[s:e]
+        if pad:
+            c = np.pad(c, ((0, pad), (0, 0)))
+            q = np.pad(q, ((0, pad), (0, 0)))
+            sl = np.pad(sl, (0, pad))
+        return self.device.decode_out(self.device.step(c, q, sl).cpu().numpy())
+
+    def _extract_chunk(self, host, s, e, batch, seg_read, seg_off, seg_len):
+        """Accepted lanes of one decoded step -> location arrays in read
+        coordinates (fold-back, bucket_locator.h:671-693)."""
+        srow = s + host["lane_read"]
+        keep = srow < e  # drop padded segment rows
+        srow = srow[keep]
+        r = seg_read[srow]
+        so = seg_off[srow]
+        sl = seg_len[srow]
+        x = host["offset"][keep]
+        rc = host["lane_rc"][keep]
+        read_off = np.where(rc, x - (batch.lengths[r] - so - sl), x - so)
+        return (r, host["lane_bucket"][keep].astype(np.int64),
+                read_off.astype(np.int64), host["votes"][keep], ~rc, so)
+
+    def _locate_split(self, batch, seg_read, seg_off, seg_len, codes, quals,
+                      s, e):
+        """Overflow fallback: re-run [s, e) as two halves (a single row can
+        never overflow: lane_budget >= 2 * max_candidate_buckets)."""
+        mid = (s + e) // 2
+        parts = ((s, mid), (mid, e)) if e - s > 1 else ((s, e),)
+        chunks = []
+        for a, b in parts:
+            if a == b:
+                continue
+            host = self._run(codes, quals, seg_len, a, b)
+            if self._overflow(host) and b - a > 1:
+                chunks.extend(self._locate_split(batch, seg_read, seg_off,
+                                                 seg_len, codes, quals, a, b))
+            else:
+                chunks.append(self._extract_chunk(host, a, b, batch, seg_read,
+                                                  seg_off, seg_len))
+        return chunks
+
+    # ------------------------------------------------------------------
+    def map_fastq(self, fastq_path, sam_path,
+                  reads_per_chunk: int = 1 << 17) -> MapStats:
+        """Streamed file mapping: a reader thread parses the next chunk of
+        reads_per_chunk reads while the current one maps."""
+        stats = MapStats()
+        writer = SamWriter(sam_path, list(self.index.ref_names),
+                           self.index.sam_ref_lengths())
+        q: queue.Queue = queue.Queue(maxsize=1)
+        rerr: list[BaseException] = []
+        stop = threading.Event()
+
+        def _reader():
+            try:
+                for b in iter_fastq_batches(fastq_path,
+                                            reads_per_batch=reads_per_chunk):
+                    while not stop.is_set():
+                        try:
+                            q.put(b, timeout=0.25)
+                            break
+                        except queue.Full:
+                            continue
+                    if stop.is_set():
+                        return
+            except BaseException as e:  # re-raised on the main thread
+                rerr.append(e)
+            finally:
+                stop.set()
+
+        thr = threading.Thread(target=_reader, name="bmtorch-fastq-reader")
+        thr.start()
+        try:
+            while True:
+                try:
+                    batch = q.get(timeout=0.25)
+                except queue.Empty:
+                    if stop.is_set() and q.empty():
+                        break
+                    continue
+                self._map_batch(writer, batch, stats)
+                del batch
+        finally:
+            stop.set()
+            thr.join()
+            writer.close()
+        if rerr:
+            raise rerr[0]
+        return stats
+
+    def map_reads(self, batch: ReadBatch, sam_path) -> MapStats:
+        """Map one in-memory ReadBatch."""
+        stats = MapStats()
+        writer = SamWriter(sam_path, list(self.index.ref_names),
+                           self.index.sam_ref_lengths())
+        try:
+            self._map_batch(writer, batch, stats)
+        finally:
+            writer.close()
+        return stats
+
+    def _map_batch(self, writer, batch: ReadBatch, stats) -> None:
+        """Locate, merge and write one ReadBatch; a writer thread merges
+        and formats earlier chunks while the device maps the next."""
+        q: queue.Queue = queue.Queue(maxsize=4)
+        werr: list[BaseException] = []
+
+        def _writer_loop():
+            while True:
+                chunk = q.get()
+                if chunk is None:
+                    return
+                try:
+                    t0 = time.perf_counter()
+                    self._emit_locations(writer, batch, chunk, stats)
+                    stats.output_seconds += time.perf_counter() - t0
+                except BaseException as e:  # re-raised on the main thread
+                    werr.append(e)
+                    return
+
+        thr = threading.Thread(target=_writer_loop, name="bmtorch-sam-writer")
+        thr.start()
+        try:
+            for chunk in self.locate_chunks(batch, stats):
+                if werr:
+                    break
+                q.put(chunk)
+        finally:
+            q.put(None)
+            thr.join()
+        if werr:
+            raise werr[0]
+
+    def _emit_locations(self, writer, batch, chunk, stats):
+        """Merge and write the records of one location chunk: reads with
+        one location pass through, 2-location reads take the vectorized
+        form of the merge, longer runs the literal filter_best_locations."""
+        cfg = self.cfg
+        lr, lbk, loff, lvotes, lorig, _lso = chunk
+        multi_mask = np.zeros(len(lr), bool)
+        if len(lr) > 1:
+            same = lr[1:] == lr[:-1]
+            multi_mask[1:] |= same
+            multi_mask[:-1] |= same
+        s_r = lr[~multi_mask]
+        s_bk = lbk[~multi_mask]
+        s_off = loff[~multi_mask]
+        s_votes = lvotes[~multi_mask]
+        s_orig = lorig[~multi_mask]
+
+        m_read, m_bk, m_off, m_votes, m_orig = [], [], [], [], []
+        if multi_mask.any():
+            mr = lr[multi_mask]
+            mbk, moff = lbk[multi_mask], loff[multi_mask]
+            mv, mo = lvotes[multi_mask], lorig[multi_mask]
+            starts = np.nonzero(np.diff(mr, prepend=-1))[0]
+            ends = np.append(starts[1:], len(mr))
+            pairable = (ends - starts) == 2
+            p2 = starts[pairable]
+            if len(p2):
+                # same bucket+strand within +-read_len*indel_rate: votes
+                # sum onto the first; else the max-vote side(s), ties in
+                # (bucket, offset, strand) key order
+                i1, i2 = p2, p2 + 1
+                x = batch.lengths[mr[i1]] * cfg.indel_rate
+                lo = np.trunc(moff[i2] - x)
+                hi = np.trunc(moff[i2] + x)
+                merged = ((mbk[i1] == mbk[i2]) & (mo[i1] == mo[i2])
+                          & (lo <= moff[i1]) & (moff[i1] <= hi))
+                k1_first = ((mbk[i1] < mbk[i2])
+                            | ((mbk[i1] == mbk[i2])
+                               & ((moff[i1] < moff[i2])
+                                  | ((moff[i1] == moff[i2])
+                                     & (~mo[i1] | mo[i2])))))
+                vsum = mv[i1] + mv[i2]
+                for sel1, sel2, v1 in (
+                        (merged, None, vsum),
+                        (~merged & (mv[i1] > mv[i2]), None, mv[i1]),
+                        (~merged & (mv[i2] > mv[i1]), "i2", None),
+                        (~merged & (mv[i1] == mv[i2]) & k1_first, "both12", None),
+                        (~merged & (mv[i1] == mv[i2]) & ~k1_first, "both21",
+                         None)):
+                    idx = np.nonzero(sel1)[0]
+                    if not len(idx):
+                        continue
+                    a1, a2 = i1[idx], i2[idx]
+                    if sel2 is None:
+                        picks = [(a1, v1[idx])]
+                    elif sel2 == "i2":
+                        picks = [(a2, mv[a2])]
+                    else:
+                        first, second = (a1, a2) if sel2 == "both12" else (a2, a1)
+                        picks = [(first, mv[first]), (second, mv[second])]
+                    for aa, vv in picks:
+                        m_read.extend(mr[aa]); m_bk.extend(mbk[aa])
+                        m_off.extend(moff[aa]); m_votes.extend(vv)
+                        m_orig.extend(mo[aa])
+            for a, b in zip(starts[~pairable], ends[~pairable]):
+                r = int(mr[a])
+                locs = [Location(int(mbk[i]), int(moff[i]), 0, int(mv[i]),
+                                 bool(mo[i])) for i in range(a, b)]
+                for loc in filter_best_locations(
+                        locs, int(batch.lengths[r]), cfg.indel_rate):
+                    m_read.append(r)
+                    m_bk.append(loc.bucket)
+                    m_off.append(loc.offset)
+                    m_votes.append(loc.votes)
+                    m_orig.append(loc.is_orig)
+
+        rec_read = np.concatenate([s_r, np.asarray(m_read, np.int64)])
+        rec_bucket = np.concatenate([s_bk, np.asarray(m_bk, np.int64)])
+        rec_off = np.concatenate([s_off, np.asarray(m_off, np.int64)])
+        rec_votes = np.concatenate([s_votes, np.asarray(m_votes, np.int64)])
+        rec_orig = np.concatenate([s_orig, np.asarray(m_orig, bool)])
+        order = np.argsort(rec_read, kind="stable")
+        rec_read, rec_bucket, rec_off = (rec_read[order], rec_bucket[order],
+                                         rec_off[order])
+        rec_votes, rec_orig = rec_votes[order], rec_orig[order]
+        rec_flag = np.where(rec_orig, 0, 16).astype(np.int32)
+        rec_pos0 = self._bucket_sam_offset[rec_bucket] + rec_off
+        rec_mapq = np.minimum(60, 6 * rec_votes).astype(np.int32)
+        stats.mapped_locations += len(rec_read)
+        self._emit_records(writer, batch, rec_read, rec_flag, rec_bucket,
+                           rec_pos0, rec_mapq)
+
+    def _emit_records(self, writer, batch, rec_read, rec_flag, rec_bucket,
+                      rec_pos0, rec_mapq):
+        """Format and write align-free records (CIGAR '*'): the native C
+        formatter when available, else SamWriter line by line."""
+        from bucketmap_tpu.io import native
+
+        if native.available() and len(rec_read):
+            ref_short = [n.split(" ")[0].encode() for n in self.index.ref_names]
+            rnames_buf = b"".join(ref_short)
+            rname_offsets = np.zeros(len(ref_short) + 1, np.int64)
+            np.cumsum([len(x) for x in ref_short], out=rname_offsets[1:])
+            rid = self.index.bucket_ref[np.asarray(rec_bucket, np.int64)]
+            rr = np.asarray(rec_read, np.int32)
+            out = native.format_sam_records(
+                rr, batch.id_offsets, np.ascontiguousarray(batch.ids_buf, np.uint8),
+                np.asarray(rec_flag, np.int32), rid.astype(np.int32),
+                rname_offsets, np.frombuffer(rnames_buf, np.uint8),
+                np.asarray(rec_pos0, np.int64), np.asarray(rec_mapq, np.int32),
+                np.zeros(len(rec_read) + 1, np.int64),
+                np.frombuffer(b"\0", np.uint8),
+                rr, batch.lengths[rr].astype(np.int32),
+                batch.seq_ascii, batch.qual_ascii)
+            if out is not None:
+                writer._f.flush()
+                writer._f.buffer.write(out)
+                return
+        bucket_names = self.index.bucket_names
+        for i in range(len(rec_read)):
+            r = int(rec_read[i])
+            seq = batch.seq_ascii[r, : batch.lengths[r]].tobytes().decode()
+            qual = batch.qual_ascii[r, : batch.lengths[r]].tobytes().decode()
+            writer.write(batch.ids[r], int(rec_flag[i]),
+                         bucket_names[int(rec_bucket[i])],
+                         int(rec_pos0[i]), int(rec_mapq[i]), seq, qual, "*")

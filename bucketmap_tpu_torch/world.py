@@ -1,0 +1,102 @@
+"""The bench world: a seeded repeat-structured genome, its index and
+simulated 300 bp reads with ground truth, cached on disk.
+
+Made exactly as `bench.py` makes its default align-free workload
+(repeat_genome seed 1 over 4 references, MapperConfig(bucket_len=65536,
+read_len=300), ShortReadSimulator seed 2 at dwgsim-like error rates),
+with the same cache file names, so one cache serves both. Host-only: no
+device work happens here.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+
+from bucketmap_tpu.config import MapperConfig
+from bucketmap_tpu.index import builder
+from bucketmap_tpu.io.fastq import ReadBatch, iter_fastq_batches
+from bucketmap_tpu.sim.simulator import ShortReadSimulator, repeat_genome
+
+
+def bench_world(cache_dir: str, genome_mbp: float = 1700.0,
+                n_reads: int = 131072, log=print):
+    """(index, fastq_path, ground_truth_path, seconds spent making what
+    the cache lacked)."""
+    cfg = MapperConfig(bucket_len=65536, read_len=300)
+    gtag = f"{genome_mbp:g}rep2"
+    tag = f"g{gtag}m_r{n_reads}"
+    os.makedirs(cache_dir, exist_ok=True)
+    fastq = os.path.join(cache_dir, f"reads_{tag}.fastq")
+    gt = os.path.join(cache_dir, f"reads_{tag}.position_ground_truth")
+    t0 = time.perf_counter()
+    genome = None
+    if os.path.exists(os.path.join(cache_dir, f"idx_{gtag}.bmtpu.json")):
+        index = builder.load_index(cache_dir, f"idx_{gtag}")
+    else:
+        genome = repeat_genome(int(genome_mbp * 1e6), seed=1, n_refs=4)
+        log(f"[world] genome {genome_mbp:g} Mbp made in "
+            f"{time.perf_counter() - t0:.1f} s")
+        t1 = time.perf_counter()
+        index = builder.build_index(genome, cfg)
+        builder.save_index(index, cache_dir, f"idx_{gtag}")
+        log(f"[world] index built in {time.perf_counter() - t1:.1f} s "
+            f"({index.n_buckets} buckets)")
+    if not os.path.exists(fastq):
+        if genome is None:
+            genome = repeat_genome(int(genome_mbp * 1e6), seed=1, n_refs=4)
+        t1 = time.perf_counter()
+        sim = ShortReadSimulator(cfg, substitution_rate=0.002,
+                                 insertion_rate=0.00025,
+                                 deletion_rate=0.00025, seed=2)
+        sim.read(genome)
+        sim.generate(cache_dir, f"reads_{tag}", n_reads)
+        log(f"[world] {n_reads} reads simulated in "
+            f"{time.perf_counter() - t1:.1f} s")
+    return index, fastq, gt, time.perf_counter() - t0
+
+
+def first_reads(fastq_path: str, n: int) -> ReadBatch:
+    """The first n reads of a FASTQ file."""
+    return next(iter(iter_fastq_batches(fastq_path, reads_per_batch=n)))
+
+
+def score_sam(sam_path: str, gt_path: str, index, tol: int = 10):
+    """(% reads mapped, % reads with a record at the true reference,
+    strand and 1-based position within +-tol), bench.py's scoring."""
+    gt_rid, gt_pos, gt_rc = [], [], []
+    with open(gt_path) as f:
+        for line in f:
+            a, b, c, _ = line.split(maxsplit=3)
+            gt_rid.append(int(a))
+            gt_pos.append(int(b))
+            gt_rc.append(int(c))
+    gt_rid = np.asarray(gt_rid, np.int32)
+    gt_pos = np.asarray(gt_pos, np.int64)
+    gt_rc = np.asarray(gt_rc, bool)
+    n_gt = len(gt_rid)
+    ref_short = {n.split(" ")[0]: i for i, n in enumerate(index.ref_names)}
+    qname, flag, rname, pos = [], [], [], []
+    with open(sam_path) as f:
+        for line in f:
+            if line[0] == "@":
+                continue
+            c = line.split("\t", 4)
+            qname.append(c[0])
+            flag.append(c[1])
+            rname.append(c[2])
+            pos.append(c[3])
+    qname = np.asarray(qname, np.int64)
+    flag = np.asarray(flag, np.int32)
+    rid = np.asarray([ref_short.get(r, -1) for r in rname], np.int32)
+    pos = np.asarray(pos, np.int64)
+    mapped = np.zeros(n_gt, bool)
+    mapped[qname] = True
+    ok = ((rid == gt_rid[qname])
+          & (((flag & 16) == 16) == gt_rc[qname])
+          & (np.abs(pos - gt_pos[qname]) <= tol))
+    correct = np.zeros(n_gt, bool)
+    correct[qname[ok]] = True
+    return mapped.mean() * 100.0, correct.mean() * 100.0

@@ -1,0 +1,218 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--genome-mbp 1700] [--reads 131072]
+
+Phases, each reported on its own line:
+  1. environment: the card (nvidia-smi name and power limit), torch and
+     CUDA versions, whether nvcc and triton are present; exits non-zero
+     without a CUDA device;
+  2. build: the three CUDA kernels from bucketmap_tpu_torch/csrc with
+     nvcc for sm_90a;
+  3. world: the bench world (bench.py's seeded repeat genome, index and
+     simulated 300 bp reads), cached under .bench_cache/;
+  4. main path: BucketMapPipeline(..., device="cuda").map_fastq over all
+     reads in batches of 16384, writing SAM; checks accuracy against the
+     ground truth and that every kernel was launched;
+  5. kernels against their plain PyTorch versions on the main path's own
+     inputs from one batch: exact equality, and median times from CUDA
+     events.
+Any failure raises and exits non-zero. The last two lines are a JSON
+object per kernel and the run's JSON result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+BATCH = 16384
+COARSE_ROWS = 2048            # read-strands compared in the coarse check
+MIN_MAPPED, MIN_CORRECT = 97.0, 95.0
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def median_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
+    """Median over reps of one call's device time, from CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def max_abs_err(torch, got, want) -> int:
+    return max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+               if a.numel() else 0 for a, b in zip(got, want))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--genome-mbp", type=float, default=1700.0)
+    ap.add_argument("--reads", type=int, default=8 * BATCH)
+    args = ap.parse_args()
+
+    # ---- 1. environment --------------------------------------------------
+    import torch
+    if not torch.cuda.is_available():
+        print("[env] torch.cuda.is_available() is false: this run needs a "
+              "CUDA GPU", file=sys.stderr)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True
+    ).stdout.strip().splitlines()[0]
+    log(card)
+    sys.path.insert(0, HERE)
+    from bucketmap_tpu_torch import kernels, world
+    from bucketmap_tpu_torch.mapper.pipeline import BucketMapPipeline
+    from bucketmap_tpu_torch.ops.coarse import coarse_score, coarse_score_plain
+    from bucketmap_tpu_torch.ops.encoding import unpack_reads
+    from bucketmap_tpu_torch.ops.vote import (fine_window, fine_window_plain,
+                                              tally, tally_plain)
+    triton = importlib.util.find_spec("triton")
+    nvcc = kernels.nvcc()
+    log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
+        f"count {torch.cuda.device_count()} nvcc {nvcc or 'absent'} "
+        f"triton {'present' if triton else 'absent'}")
+    dev = torch.device("cuda", 0)
+
+    # ---- 2. build --------------------------------------------------------
+    t0 = time.perf_counter()
+    kernels.library()
+    regs = [ln.strip() for ln in kernels.BUILD_INFO.get("log", "").splitlines()
+            if "registers" in ln]
+    log(f"[build] {len(kernels.SOURCES)} CUDA sources -> "
+        f"{kernels.BUILD_INFO['path']} in {time.perf_counter() - t0:.2f} s "
+        f"(nvcc {kernels.BUILD_INFO['seconds']:.2f} s, sm_90a); ptxas: "
+        f"{'; '.join(sorted(set(regs)))}")
+
+    # ---- 3. world --------------------------------------------------------
+    index, fastq, gt, world_s = world.bench_world(
+        os.path.join(HERE, ".bench_cache"), args.genome_mbp, args.reads)
+    cfg = index.config
+    log(f"[world] {args.genome_mbp:g} Mbp repeat genome, {index.n_buckets} "
+        f"buckets, {args.reads} reads of {cfg.read_len} bp, "
+        f"bucket_len {cfg.bucket_len}: ready in {world_s:.1f} s")
+
+    # ---- 4. main path ----------------------------------------------------
+    t0 = time.perf_counter()
+    pipe = BucketMapPipeline(index, device=dev, batch_size=BATCH,
+                             pair_batch=BATCH)
+    torch.cuda.synchronize()
+    log(f"[init] device tables ready in {time.perf_counter() - t0:.1f} s "
+        f"(fine index built on the device: search_steps "
+        f"{pipe.device.fine.search_steps}, low_bits {pipe.device.fine.low_bits}"
+        f"; {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated)")
+    sam = os.path.join(HERE, ".bench_cache", "chip_smoke.sam")
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    stats = pipe.map_fastq(fastq, sam)
+    torch.cuda.synchronize()
+    map_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    mapped, correct = world.score_sam(sam, gt, index)
+    log(f"[map] {stats.num_reads} reads in {map_s:.2f} s = "
+        f"{stats.num_reads / map_s:.1f} reads/s; pct_mapped {mapped:.2f} "
+        f"pct_correct_position(+-10) {correct:.2f} locations/read "
+        f"{stats.mapped_locations / stats.num_reads:.4f}; candidate pairs "
+        f"{stats.candidate_pairs}; step+decode {stats.fine_seconds:.2f} s, "
+        f"segmenting {stats.coarse_seconds:.2f} s, SAM writer "
+        f"{stats.output_seconds:.2f} s; device peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
+        f"launches {launches}")
+    if stats.num_reads < args.reads:
+        raise RuntimeError(f"mapped {stats.num_reads} of {args.reads} reads")
+    if mapped < MIN_MAPPED or correct < MIN_CORRECT:
+        raise RuntimeError(f"accuracy below the floor: mapped {mapped:.2f} "
+                           f"(>= {MIN_MAPPED}), correct {correct:.2f} "
+                           f"(>= {MIN_CORRECT})")
+    idle = [k for k, n in launches.items() if n == 0]
+    if idle:
+        raise RuntimeError(f"main path never launched: {idle}")
+
+    # ---- 5. kernels against plain versions on main-path inputs ----------
+    dm = pipe.device
+    batch = world.first_reads(fastq, BATCH)
+    codes, quals, seg_len, _, _ = pipe._all_segments(batch)
+    packed = dm.pack(codes, quals, seg_len)
+    c, q_ok, lens = unpack_reads(packed, cfg.read_len, cfg.query_seed)
+    both, _, _ = dm.coarse.sample_hashes(c, q_ok, lens)
+    s = cfg.mapper_samples
+    rows_all = dm.coarse.gram_rows(both)
+    rows = rows_all[: COARSE_ROWS * s].contiguous()
+    table = dm.coarse.qgram_words
+    lanes = dm.compact_lanes(packed)
+    vargs = dm.chunk_args(lanes, 0)
+    wargs, tgt_idx = dm.fine.window_args(*vargs)
+    P, p = vargs[2].shape
+    pk = fine_window(*wargs)
+    targs = dm.fine.tally_args(pk.reshape(P, p, -1), tgt_idx, vargs[1])
+
+    cases = [
+        ("coarse_score", "bucketmap_tpu_torch/csrc/coarse_score.cu",
+         "bucketmap_tpu/ops/coarse.py:256",
+         lambda: coarse_score(table, rows, index.n_buckets, s),
+         lambda: coarse_score_plain(table, rows, index.n_buckets, s),
+         f"{COARSE_ROWS} read-strands x {s} samples x {table.shape[1]} words"),
+        ("fine_window", "bucketmap_tpu_torch/csrc/fine_window.cu",
+         "bucketmap_tpu/ops/vote.py:54",
+         lambda: (fine_window(*wargs),), lambda: (fine_window_plain(*wargs),),
+         f"{wargs[1].shape[0]} windows of one {P}-lane vote chunk"),
+        ("tally", "bucketmap_tpu_torch/csrc/tally.cu",
+         "bucketmap_tpu/ops/vote.py:186",
+         lambda: tally(*targs), lambda: tally_plain(*targs),
+         f"{P} pairs x {targs[0].shape[1]} proposals"),
+    ]
+    report = []
+    for name, src, replaces, kern, plain, shape in cases:
+        got = kern()
+        torch.cuda.synchronize()
+        want = plain()
+        err = max_abs_err(torch, got, want)
+        equal = all(torch.equal(a, b) for a, b in zip(got, want))
+        ms = median_ms(torch, kern)
+        plain_ms = median_ms(torch, plain, reps=5, warmup=1)
+        log(f"[kernel] {name}: {shape}; equal {equal} max_abs_err {err}; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        if not equal:
+            raise RuntimeError(f"{name} disagrees with its plain version")
+        report.append({"name": name, "route": "cuda", "source": src,
+                       "replaces": replaces, "launches": launches[name],
+                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+    full_ms = median_ms(torch, lambda: coarse_score(
+        table, rows_all, index.n_buckets, s), reps=5, warmup=1)
+    log(f"[kernel] coarse_score at the full batch "
+        f"({rows_all.shape[0] // s} read-strands): {full_ms:.4f} ms")
+    if "jax" in sys.modules:
+        raise RuntimeError("jax was imported by the port")
+
+    log(json.dumps({"kernels": report}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

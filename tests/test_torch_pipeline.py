@@ -1,0 +1,134 @@
+"""The torch port end to end: SAM bytes equal to the JAX pipeline's, the
+package running with no jax loaded, and the `map` command line."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from bucketmap_tpu.config import MapperConfig
+from bucketmap_tpu.index.builder import build_index, save_index
+from bucketmap_tpu.mapper.pipeline import BucketMapPipeline as JaxPipeline
+from bucketmap_tpu.mapper.pipeline import Location as JaxLocation
+from bucketmap_tpu.mapper.pipeline import \
+    filter_best_locations as jax_filter_best
+from bucketmap_tpu.ops.encoding import decode_to_ascii
+from bucketmap_tpu.sim.simulator import ShortReadSimulator, repeat_genome
+from bucketmap_tpu_torch import cli
+from bucketmap_tpu_torch.mapper.pipeline import (BucketMapPipeline, Location,
+                                                 filter_best_locations)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CFG = MapperConfig(bucket_len=4096, read_len=150, index_seed=6, query_seed=9,
+                   mapper_samples=8)
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """A repeat genome, its index, and 300 noisy reads plus three long
+    reads (> 2*read_len, mapped as segments) in one FASTQ."""
+    d = tmp_path_factory.mktemp("torch_pipe")
+    genome = repeat_genome(120_000, seed=21, n_refs=2)
+    index = build_index(genome, CFG)
+    sim = ShortReadSimulator(CFG, substitution_rate=0.01, insertion_rate=0.001,
+                             deletion_rate=0.001, seed=32)
+    sim.read(genome)
+    paths = sim.generate(d, "noisy", 300)
+    with open(paths["fastq"], "a") as f:
+        for i, start in enumerate((10_000, 31_000, 50_500)):
+            seq = decode_to_ascii(genome[i % 2].codes[start: start + 700]).decode()
+            f.write(f"@long{i}\n{seq}\n+\n{'E' * len(seq)}\n")
+    return d, index, paths["fastq"]
+
+
+@pytest.mark.parametrize("ppr", [4, 1])
+def test_sam_matches_jax_pipeline(world, monkeypatch, ppr):
+    d, index, fastq = world
+    monkeypatch.setenv("BMTPU_DEVICE_FINE", "1")
+    JaxPipeline(index, batch_size=128, pair_batch=64,
+                pairs_per_read=ppr).map_fastq(fastq, d / f"jax{ppr}.sam")
+    pipe = BucketMapPipeline(index, device="cpu", batch_size=128,
+                             pair_batch=64, pairs_per_read=ppr)
+    splits = []
+    split = pipe._locate_split
+    monkeypatch.setattr(pipe, "_locate_split",
+                        lambda *a: splits.append(a[-2:]) or split(*a))
+    stats = pipe.map_fastq(fastq, d / f"torch{ppr}.sam")
+    want = (d / f"jax{ppr}.sam").read_bytes()
+    assert (d / f"torch{ppr}.sam").read_bytes() == want
+    assert stats.num_reads == 303 and stats.mapped_locations > 300
+    # pairs_per_read=1 overflows the lane budget: the split retry ran
+    assert bool(splits) == (ppr == 1)
+
+
+def test_filter_best_locations_matches_jax():
+    rng = np.random.default_rng(3)
+    for _ in range(200):
+        n = int(rng.integers(1, 7))
+        locs = [(int(rng.integers(0, 3)), int(rng.integers(0, 40)), 0,
+                 int(rng.integers(1, 6)), bool(rng.integers(0, 2)))
+                for _ in range(n)]
+        got = filter_best_locations([Location(*l) for l in locs], 150, 0.02)
+        want = jax_filter_best([JaxLocation(*l) for l in locs], 150, 0.02)
+        assert [tuple(vars(g).values()) for g in got] == \
+            [tuple(vars(w).values()) for w in want]
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def test_port_maps_without_jax():
+    code = """
+import sys
+import numpy as np
+from __graft_entry__ import _batch, _tiny_world
+from bucketmap_tpu.io.fastq import ReadBatch
+from bucketmap_tpu_torch.mapper.pipeline import BucketMapPipeline
+cfg, index, sim = _tiny_world()
+codes, quals, lengths = _batch(sim, cfg, 16)
+batch = ReadBatch.from_arrays([str(i) for i in range(16)], codes, quals, lengths)
+stats = BucketMapPipeline(index, device="cpu", batch_size=16,
+                          pair_batch=16).map_reads(batch, sys.argv[1])
+assert stats.mapped_locations > 0, stats
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+print("ok", stats.mapped_locations)
+"""
+    res = subprocess.run([sys.executable, "-c", code, os.devnull], cwd=REPO,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")
+
+
+def test_cli_map_on_cpu(world):
+    d, index, fastq = world
+    save_index(index, d, "idx")
+    out = d / "cli.sam"
+    res = subprocess.run(
+        [sys.executable, "-m", "bucketmap_tpu_torch.cli", "map", "-q", fastq,
+         "-i", "idx", "--index-dir", d, "-o", out, "--batch-size", "128",
+         "--device", "cpu"], cwd=REPO, env=_env(), capture_output=True,
+        text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "Total mapped locations" in res.stdout
+    BucketMapPipeline(index, device="cpu", batch_size=128,
+                      pair_batch=128).map_fastq(fastq, d / "direct.sam")
+    assert out.read_bytes() == (d / "direct.sam").read_bytes()
+
+
+def test_cli_refuses_missing_cuda_and_align(world, capsys):
+    d, index, fastq = world
+    import torch
+    base = ["map", "-q", str(fastq), "-i", "idx", "--index-dir", str(d),
+            "-o", str(d / "x.sam")]
+    if not torch.cuda.is_available():
+        assert cli.main(base) == 1
+        assert "CUDA is not available" in capsys.readouterr().err
+    assert cli.main(base + ["--device", "cpu", "--align"]) == 2
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        BucketMapPipeline(index, device="cpu", align=True)
