@@ -3,7 +3,8 @@
   python -m bucketmap_tpu_torch.cli map -i IND -q reads.fastq -o out.sam \\
       [--index-dir DIR] [--batch-size N] [--device cuda|cpu] [params]
 
-Same flags as `bucketmap_tpu.cli map`, plus --device (default cuda).
+Same flags as `bucketmap_tpu.cli map`, plus --device (default cuda);
+--align aligns every location (CIGARs, DP-based MAPQ).
 With --device cuda and no usable CUDA device it fails; it maps on the
 CPU only when --device cpu is given. Index artifacts are the JAX
 package's (`bucketmap_tpu.cli index` builds them).
@@ -22,7 +23,7 @@ from bucketmap_tpu.cli import _add_param_flags
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="bucketmap-tpu-torch",
-        description="DNA read mapper, PyTorch/CUDA port (align-free)")
+        description="DNA read mapper, PyTorch/CUDA port")
     sub = parser.add_subparsers(dest="cmd", required=True)
     p_map = sub.add_parser("map", help="map reads to SAM")
     p_map.add_argument("-q", "--query-file", required=True)
@@ -32,7 +33,7 @@ def main(argv=None) -> int:
     p_map.add_argument("-g", "--genome", default=None,
                        help="FASTA (only needed when loading a reference-format index)")
     p_map.add_argument("--align", action="store_true",
-                       help="alignment with CIGARs (not ported yet)")
+                       help="banded alignment with CIGARs")
     p_map.add_argument("--batch-size", type=int, default=1024)
     p_map.add_argument("--device", default="cuda",
                        help="torch device to map on (default cuda)")
@@ -55,10 +56,6 @@ def main(argv=None) -> int:
               "is false); pass --device cpu to map on the CPU.",
               file=sys.stderr)
         return 1
-    if args.align:
-        print("[ERROR]\t\t--align is not ported to the torch package yet "
-              "(ROADMAP queue 1 item 10).", file=sys.stderr)
-        return 2
 
     cfg = _config_from(args)
     base = os.path.join(args.index_dir, args.index_indicator)
@@ -71,7 +68,8 @@ def main(argv=None) -> int:
         print(f"[ERROR]\t\tno index named {args.index_indicator} in "
               f"{args.index_dir}", file=sys.stderr)
         return 1
-    pipe = BucketMapPipeline(index, device=device, batch_size=args.batch_size,
+    pipe = BucketMapPipeline(index, device=device, align=args.align,
+                             batch_size=args.batch_size,
                              pair_batch=args.batch_size)
     t0 = time.time()
     stats = pipe.map_fastq(args.query_file, args.output_file)

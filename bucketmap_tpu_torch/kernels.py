@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels of `csrc/`.
 
-The sources are compiled by `nvcc` for sm_90a into one shared library
-with a plain C interface, bound with ctypes. The build goes to
+Each source is compiled by its own `nvcc` for sm_90a, all at once, and
+the objects are linked into one shared library with a plain C
+interface, bound with ctypes. The build goes to
 `csrc/build/<hash of sources and flags>/` at first use, so a changed
 source rebuilds and an unchanged one is loaded as is. Nothing is built
 or imported when this module is imported.
@@ -22,10 +23,10 @@ import threading
 import time
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-SOURCES = ("coarse_score.cu", "fine_window.cu", "tally.cu")
+SOURCES = ("coarse_score.cu", "fine_window.cu", "tally.cu", "dp_fwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-KERNELS = ("coarse_score", "fine_window", "tally")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
+KERNELS = ("coarse_score", "fine_window", "tally", "dp_fwd")
 
 LAUNCHES = {name: 0 for name in KERNELS}
 BUILD_INFO: dict = {}
@@ -74,21 +75,40 @@ def build() -> str:
         BUILD_INFO["path"] = so
         return so
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{so}.tmp{os.getpid()}"
     compiler = nvcc()
     if compiler is None:
         raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
                            "toolkit")
-    cmd = [compiler, *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC, s) for s in SOURCES)]
     t0 = time.perf_counter()
+    objs, procs = [], []
+    for name in SOURCES:
+        obj = os.path.join(out_dir, f"{name}.{os.getpid()}.o")
+        cmd = [compiler, *NVCC_FLAGS, "-c", os.path.join(CSRC, name), "-o",
+               obj]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log = []
+    for cmd, proc in procs:
+        out = proc.communicate()[0]
+        log.append(out)
+        if proc.returncode != 0:
+            for _, other in procs:
+                other.communicate()
+            raise RuntimeError(f"nvcc failed (exit {proc.returncode}): "
+                               f"{' '.join(cmd)}\n{out}")
+    tmp = f"{so}.tmp{os.getpid()}"
+    cmd = [compiler, "-shared", "-o", tmp, *objs]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {res.returncode}): "
+        raise RuntimeError(f"nvcc link failed (exit {res.returncode}): "
                            f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
     os.replace(tmp, so)
+    for obj in objs:
+        os.remove(obj)
     BUILD_INFO.update(seconds=time.perf_counter() - t0,
-                      log=res.stdout + res.stderr, path=so)
+                      log="".join(log) + res.stdout + res.stderr, path=so)
     return so
 
 
@@ -108,6 +128,9 @@ def library():
             lib.bm_tally.argtypes = [p, p, i64, i32, i32, i32, i32, i32, p, p,
                                      p, p]
             lib.bm_tally.restype = i32
+            lib.bm_dp_fwd.argtypes = [p, p, p, p, i64, i32, i32, i32, i32, p,
+                                      p, p]
+            lib.bm_dp_fwd.restype = i32
             _lib = lib
         return _lib
 

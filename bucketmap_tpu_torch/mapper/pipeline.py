@@ -1,11 +1,13 @@
-"""End-to-end align-free mapping on torch: FASTQ -> device step -> SAM.
+"""End-to-end mapping on torch: FASTQ -> device step -> [align] -> SAM.
 
-Counterpart of `bucketmap_tpu/mapper/pipeline.py:BucketMapPipeline`,
-align-free only. Reads are cut into read_len segments (long reads into
+Counterpart of `bucketmap_tpu/mapper/pipeline.py:BucketMapPipeline`.
+Reads are cut into read_len segments (long reads into
 num_segment_samples windows), mapped in fixed-size batches through the
-device step, decoded on the host, merged per read (filter_best_locations
-semantics) and written as SAM through the JAX package's SamWriter, so
-the bytes match the reference's.
+device step and decoded on the host. Align-free, the locations are
+merged per read (filter_best_locations semantics); in align mode every
+location goes through the banded aligner, which gives the CIGAR and the
+MAPQ. Records are written as SAM through the JAX package's SamWriter and
+native formatter, so the bytes match the reference's.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from bucketmap_tpu.io.sam import SamWriter
 from bucketmap_tpu.ops.sampler import sample_deterministic
 from bucketmap_tpu_torch.device import resolve_device
 from bucketmap_tpu_torch.mapper.device_pipeline import DeviceMapper
+from bucketmap_tpu_torch.ops.align import BandedAligner
 
 
 @dataclasses.dataclass
@@ -91,18 +94,18 @@ class BucketMapPipeline:
     def __init__(self, index: BucketIndex, *, device, align: bool = False,
                  batch_size: int = 512, pair_batch: int = 256,
                  pairs_per_read: int = 4):
-        if align:
-            raise NotImplementedError(
-                "align mode is not ported yet (ROADMAP queue 1 item 10, "
-                "ops/align.py:BandedAligner)")
         self.index = index
         self.cfg = index.config
-        self.align = False
+        self.align = align
         self.batch_size = batch_size
-        self.device = DeviceMapper(index, resolve_device(device),
-                                   batch_size=batch_size,
+        dev = resolve_device(device)
+        self.device = DeviceMapper(index, dev, batch_size=batch_size,
                                    pairs_per_read=pairs_per_read,
                                    vote_chunk=min(4096, pair_batch, batch_size))
+        # the aligner holds its own copy of the packed genome: the fine
+        # stage uploads it in slabs and keeps none
+        self.aligner = (BandedAligner(index, dev, pair_batch=pair_batch)
+                        if align else None)
         self._bucket_sam_offset = index.ref_offset_of_bucket()
 
     # ------------------------------------------------------------------
@@ -265,9 +268,13 @@ class BucketMapPipeline:
 
     # ------------------------------------------------------------------
     def map_fastq(self, fastq_path, sam_path,
+                  quality_threshold: int | None = None,
                   reads_per_chunk: int = 1 << 17) -> MapStats:
         """Streamed file mapping: a reader thread parses the next chunk of
-        reads_per_chunk reads while the current one maps."""
+        reads_per_chunk reads while the current one maps. In align mode
+        records below quality_threshold (default cfg.quality_threshold)
+        are dropped."""
+        qt = self._threshold(quality_threshold)
         stats = MapStats()
         writer = SamWriter(sam_path, list(self.index.ref_names),
                            self.index.sam_ref_lengths())
@@ -302,7 +309,7 @@ class BucketMapPipeline:
                     if stop.is_set() and q.empty():
                         break
                     continue
-                self._map_batch(writer, batch, stats)
+                self._map_batch(writer, batch, qt, stats)
                 del batch
         finally:
             stop.set()
@@ -312,20 +319,40 @@ class BucketMapPipeline:
             raise rerr[0]
         return stats
 
-    def map_reads(self, batch: ReadBatch, sam_path) -> MapStats:
+    def map_reads(self, batch: ReadBatch, sam_path,
+                  quality_threshold: int | None = None) -> MapStats:
         """Map one in-memory ReadBatch."""
+        qt = self._threshold(quality_threshold)
         stats = MapStats()
         writer = SamWriter(sam_path, list(self.index.ref_names),
                            self.index.sam_ref_lengths())
         try:
-            self._map_batch(writer, batch, stats)
+            self._map_batch(writer, batch, qt, stats)
         finally:
             writer.close()
         return stats
 
-    def _map_batch(self, writer, batch: ReadBatch, stats) -> None:
+    def _threshold(self, quality_threshold: int | None) -> int:
+        return (self.cfg.quality_threshold if quality_threshold is None
+                else quality_threshold)
+
+    def _map_batch(self, writer, batch: ReadBatch, qt, stats) -> None:
         """Locate, merge and write one ReadBatch; a writer thread merges
-        and formats earlier chunks while the device maps the next."""
+        and formats earlier chunks while the device maps the next. Align
+        mode locates the whole batch first and then aligns all its
+        locations in sub-batches."""
+        if self.align:
+            chunks = list(self.locate_chunks(batch, stats))
+            t0 = time.perf_counter()
+            if chunks:
+                chunk = tuple(np.concatenate([c[i] for c in chunks])
+                              for i in range(6))
+            else:
+                z = np.zeros(0, np.int64)
+                chunk = (z, z, z, z, np.zeros(0, bool), z)
+            self._emit_locations(writer, batch, chunk, qt, stats)
+            stats.output_seconds += time.perf_counter() - t0
+            return
         q: queue.Queue = queue.Queue(maxsize=4)
         werr: list[BaseException] = []
 
@@ -336,7 +363,7 @@ class BucketMapPipeline:
                     return
                 try:
                     t0 = time.perf_counter()
-                    self._emit_locations(writer, batch, chunk, stats)
+                    self._emit_locations(writer, batch, chunk, qt, stats)
                     stats.output_seconds += time.perf_counter() - t0
                 except BaseException as e:  # re-raised on the main thread
                     werr.append(e)
@@ -355,12 +382,26 @@ class BucketMapPipeline:
         if werr:
             raise werr[0]
 
-    def _emit_locations(self, writer, batch, chunk, stats):
+    def _emit_locations(self, writer, batch, chunk, qt, stats):
         """Merge and write the records of one location chunk: reads with
         one location pass through, 2-location reads take the vectorized
-        form of the merge, longer runs the literal filter_best_locations."""
+        form of the merge, longer runs the literal filter_best_locations.
+        In align mode every location is aligned instead: long reads
+        (> 2*read_len) segment by segment, the others whole."""
         cfg = self.cfg
-        lr, lbk, loff, lvotes, lorig, _lso = chunk
+        lr, lbk, loff, lvotes, lorig, lso = chunk
+        if self.align:
+            long_mask = batch.lengths[lr] > 2 * cfg.read_len
+            if long_mask.any():
+                self._align_long_emit(
+                    writer, batch, lr[long_mask], lbk[long_mask],
+                    loff[long_mask], lorig[long_mask], lso[long_mask], qt,
+                    stats)
+            if not long_mask.all():
+                sm = ~long_mask
+                self._align_stream_emit(writer, batch, lr[sm], lbk[sm],
+                                        loff[sm], lorig[sm], qt, stats)
+            return
         multi_mask = np.zeros(len(lr), bool)
         if len(lr) > 1:
             same = lr[1:] == lr[:-1]
@@ -445,14 +486,239 @@ class BucketMapPipeline:
         rec_mapq = np.minimum(60, 6 * rec_votes).astype(np.int32)
         stats.mapped_locations += len(rec_read)
         self._emit_records(writer, batch, rec_read, rec_flag, rec_bucket,
-                           rec_pos0, rec_mapq)
+                           rec_pos0, rec_mapq, None)
+
+    def _align_long_emit(self, writer, batch, lr, lbk, loff, lorig, lso, qt,
+                         stats):
+        """Segment-stitched alignment of long reads (> 2*read_len), as the
+        reference does it (`_align_long_emit` there): every segment
+        location is aligned at its own voted offset (runs path, no
+        size_t-wrap rule), then per (read, bucket, strand) the segments
+        within a read length of each other form one mapping. Its start
+        comes from the boundary segment's DP begin (true forward-genome
+        coordinates on both strands), its CIGAR is the segments' runs
+        joined by gap filler (min(g_r, g_t) M plus |g_r - g_t| I or D),
+        reversed for the reverse strand, and its MAPQ is
+        clip(60 + floor(120 * sum(score) / sum(seg_len)), 0, 60)."""
+        cfg = self.cfg
+        rl = cfg.read_len
+        n = len(lr)
+        if n == 0:
+            return
+        lens = batch.lengths[lr].astype(np.int64)
+        so = lso.astype(np.int64)
+        sl = np.minimum(lens - so, rl).astype(np.int64)
+        off_j = np.where(lorig, loff + so,
+                         loff + (lens - so - sl)).astype(np.int64)
+        col = np.arange(rl)
+        mask = col[None, :] < sl[:, None]
+        src = np.where(mask, so[:, None] + col[None, :], 0)
+        qcodes = np.where(mask, batch.codes[lr[:, None], src], 0) \
+            .astype(np.uint8)
+
+        sc = np.zeros(n, np.int64)
+        bg = np.zeros(n, np.int64)
+        nM = np.zeros(n, np.int64)
+        nI = np.zeros(n, np.int64)
+        nD = np.zeros(n, np.int64)
+        seg_runs: list = [None] * n
+
+        def emit_runs(s, e, sc_, bg_, nr, runs, row_off):
+            sc[s:e] = sc_
+            bg[s:e] = bg_
+            tot = int(row_off[-1])
+            ops_f = (runs[:tot] & 3).astype(np.int64)
+            lens_f = (runs[:tot] >> 2).astype(np.int64)
+            row_id = np.repeat(np.arange(e - s), np.diff(row_off))
+            for code, acc in ((1, nM), (2, nI), (3, nD)):
+                acc[s:e] = np.bincount(
+                    row_id, weights=np.where(ops_f == code, lens_f, 0),
+                    minlength=e - s)
+            for i in range(e - s):
+                r0, r1 = int(row_off[i]), int(row_off[i + 1])
+                seg_runs[s + i] = [(int(a), int(o)) for a, o in
+                                   zip(lens_f[r0:r1], ops_f[r0:r1])]
+
+        # segments at long-read error rates carry many runs: a larger
+        # budget, and no size_t-wrap rule (a segment scoring below -60 is
+        # still a traceback the stitcher needs)
+        self.aligner.align_batch_runs_stream(
+            qcodes, sl.astype(np.int32), lbk.astype(np.int32),
+            off_j.astype(np.int32), ~lorig, emit_runs,
+            run_cap_per_pair=48, wrap_star=False)
+
+        blen = np.asarray(self.index.bucket_lengths)[lbk]
+        width = np.minimum(sl + 1 + (cfg.indel_rate * sl).astype(np.int64),
+                           blen - off_j)
+        # stitching coordinate p grows along the stored read direction
+        # (forward: p = absolute position; reverse: p = -absolute)
+        begin_p = np.where(lorig, off_j + bg, -(off_j + width - 1 - bg))
+        TL = nM + nD
+        seg_ok = (nM + nI) == sl                  # traceback spans the segment
+
+        rec_read, rec_flag, rec_bucket = [], [], []
+        rec_pos0, rec_mapq, rec_cigar = [], [], []
+        op_char = {1: b"M", 2: b"I", 3: b"D"}
+        gkeys = np.stack([lr, lbk, lorig.astype(np.int64)], axis=1)
+        bounds = np.nonzero(np.any(np.diff(gkeys, axis=0) != 0, axis=1))[0] + 1
+        bounds = np.concatenate([[0], bounds, [n]])
+        for a, b in zip(bounds[:-1], bounds[1:]):
+            grp = np.arange(a, b)[np.argsort(loff[a:b], kind="stable")]
+            rlen = int(lens[a])
+            # a gap in loff beyond a read length starts a new mapping
+            cl_start = 0
+            cuts = list(np.nonzero(np.diff(loff[grp]) > rlen)[0] + 1) + [len(grp)]
+            for cut in cuts:
+                members = grp[cl_start:cut]
+                cl_start = cut
+                members = members[np.argsort(so[members], kind="stable")]
+                _, keep = np.unique(so[members], return_index=True)
+                members = members[np.sort(keep)]
+                valid = members[seg_ok[members]]
+                if len(valid) == 0:
+                    continue
+                cov = int(sl[valid].sum())
+                rate = float(sc[valid].sum()) / max(1, cov)
+                mapq = max(0, min(60, 60 + int(np.floor(120.0 * rate))))
+                if mapq < qt:
+                    continue
+                runs: list[tuple[int, int]] = []
+                first = valid[0]
+                pcur = int(begin_p[first] - so[first])
+                rcur = 0
+                for j in valid:
+                    g_r = int(so[j]) - rcur
+                    g_t = max(0, int(begin_p[j]) - pcur)
+                    m = min(g_r, g_t)
+                    if m:
+                        runs.append((m, 1))
+                    if g_r > g_t:
+                        runs.append((g_r - g_t, 2))
+                    elif g_t > g_r:
+                        runs.append((g_t - g_r, 3))
+                    runs.extend(seg_runs[j])
+                    rcur = int(so[j] + sl[j])
+                    pcur = int(begin_p[j] + TL[j])
+                tail = rlen - rcur
+                if tail > 0:
+                    runs.append((tail, 1))
+                    pcur += tail
+                is_fwd = bool(lorig[first])
+                if is_fwd:
+                    pos0 = int(begin_p[first] - so[first])
+                else:
+                    # leftmost forward-genome base = the last position in
+                    # the stored direction; the CIGAR in reference order
+                    pos0 = -(pcur - 1)
+                    runs = runs[::-1]
+                merged: list[tuple[int, int]] = []
+                for cnt, op in runs:
+                    if merged and merged[-1][1] == op:
+                        merged[-1] = (merged[-1][0] + cnt, op)
+                    else:
+                        merged.append((cnt, op))
+                rec_read.append(int(lr[first]))
+                rec_flag.append(0 if is_fwd else 16)
+                rec_bucket.append(int(lbk[first]))
+                rec_pos0.append(max(0, pos0))
+                rec_mapq.append(mapq)
+                rec_cigar.append(b"".join(
+                    str(c).encode() + op_char[o] for c, o in merged))
+
+        stats.mapped_locations += len(rec_read)
+        if rec_read:
+            rb = np.asarray(rec_bucket, np.int64)
+            self._emit_records(
+                writer, batch, np.asarray(rec_read, np.int64),
+                np.asarray(rec_flag, np.int32), rb,
+                self._bucket_sam_offset[rb] + np.asarray(rec_pos0, np.int64),
+                np.asarray(rec_mapq, np.int32), rec_cigar)
+
+    def _align_stream_emit(self, writer, batch, lr, lbk, loff, lorig, qt,
+                           stats):
+        """Align the locations of reads up to 2*read_len and write their
+        records as sub-batches land, on a writer thread. MAPQ is 60 +
+        score as the reference's size_t: scores below -60 wrap (mod 256)
+        and bypass the threshold, with CIGAR '*'."""
+        if not len(lr):
+            return
+        bucket_sam_off = self._bucket_sam_offset
+        wq: queue.Queue = queue.Queue(maxsize=4)
+        werr: list[BaseException] = []
+
+        def _writer_loop():
+            # after a write failure keep draining to the sentinel, so the
+            # producer never blocks on the bounded queue and sees werr
+            failed = False
+            while True:
+                job = wq.get()
+                if job is None:
+                    return
+                if failed:
+                    continue
+                try:
+                    self._emit_records(writer, batch, *job)
+                except BaseException as e:  # re-raised on the main thread
+                    werr.append(e)
+                    failed = True
+
+        thr = threading.Thread(target=_writer_loop, name="bmtorch-align-emit")
+        thr.start()
+
+        def emit(s, e, scores, begins, cbuf, coffs):
+            mapq = 60 + scores.astype(np.int64)
+            mapq = np.where(mapq < 0, mapq & 0xFF, mapq)
+            keep = np.where(scores < -60, True, mapq >= qt)
+            kidx = np.nonzero(keep)[0]
+            rec_read = lr[s:e][keep]
+            rec_bucket = lbk[s:e][keep]
+            rec_flag = np.where(lorig[s:e][keep], 0, 16).astype(np.int32)
+            rec_pos0 = (bucket_sam_off[rec_bucket] + begins[keep]
+                        + loff[s:e][keep])
+            rec_mapq = mapq[keep].astype(np.int32)
+            # the kept rows' CIGAR byte spans
+            klens = coffs[kidx + 1] - coffs[kidx]
+            koffs = np.zeros(len(kidx) + 1, np.int64)
+            np.cumsum(klens, out=koffs[1:])
+            if len(kidx) and koffs[-1]:
+                src = (np.repeat(coffs[kidx] - koffs[:-1], klens)
+                       + np.arange(koffs[-1], dtype=np.int64))
+                kbuf = np.frombuffer(cbuf, np.uint8)[src].tobytes()
+            else:
+                kbuf = b""
+            stats.mapped_locations += len(rec_read)
+            if werr:
+                raise werr[0]
+            wq.put((rec_read, rec_flag, rec_bucket, rec_pos0, rec_mapq,
+                    (kbuf, koffs)))
+
+        lri = lr.astype(np.int32)
+        # in a batch with long reads the code matrix is as wide as the
+        # longest; these reads are <= 2*read_len
+        qc = batch.codes[lri]
+        qc = np.ascontiguousarray(qc[:, :min(qc.shape[1], 2 * self.cfg.read_len)])
+        try:
+            self.aligner.align_batch_stream(
+                qc, batch.lengths[lri], lbk.astype(np.int32),
+                loff.astype(np.int32), ~lorig, emit)
+        finally:
+            wq.put(None)
+            thr.join()
+        if werr:
+            raise werr[0]
 
     def _emit_records(self, writer, batch, rec_read, rec_flag, rec_bucket,
-                      rec_pos0, rec_mapq):
-        """Format and write align-free records (CIGAR '*'): the native C
-        formatter when available, else SamWriter line by line."""
+                      rec_pos0, rec_mapq, rec_cigar):
+        """Format and write records: the native C formatter when
+        available, else SamWriter line by line. rec_cigar: (cigar_buf
+        bytes, (n+1,) offsets) spans (an empty span is '*'), a list of
+        bytes per record, or None for all '*'."""
         from bucketmap_tpu.io import native
 
+        if isinstance(rec_cigar, list):
+            offs = np.zeros(len(rec_cigar) + 1, np.int64)
+            np.cumsum([len(c) for c in rec_cigar], out=offs[1:])
+            rec_cigar = (b"".join(rec_cigar), offs)
         if native.available() and len(rec_read):
             ref_short = [n.split(" ")[0].encode() for n in self.index.ref_names]
             rnames_buf = b"".join(ref_short)
@@ -465,8 +731,10 @@ class BucketMapPipeline:
                 np.asarray(rec_flag, np.int32), rid.astype(np.int32),
                 rname_offsets, np.frombuffer(rnames_buf, np.uint8),
                 np.asarray(rec_pos0, np.int64), np.asarray(rec_mapq, np.int32),
-                np.zeros(len(rec_read) + 1, np.int64),
-                np.frombuffer(b"\0", np.uint8),
+                (np.zeros(len(rec_read) + 1, np.int64) if rec_cigar is None
+                 else rec_cigar[1]),
+                np.frombuffer((rec_cigar[0] if rec_cigar else b"") or b"\0",
+                              np.uint8),
                 rr, batch.lengths[rr].astype(np.int32),
                 batch.seq_ascii, batch.qual_ascii)
             if out is not None:
@@ -478,6 +746,9 @@ class BucketMapPipeline:
             r = int(rec_read[i])
             seq = batch.seq_ascii[r, : batch.lengths[r]].tobytes().decode()
             qual = batch.qual_ascii[r, : batch.lengths[r]].tobytes().decode()
+            cig = "*" if rec_cigar is None else (
+                rec_cigar[0][rec_cigar[1][i]:rec_cigar[1][i + 1]].decode()
+                or "*")
             writer.write(batch.ids[r], int(rec_flag[i]),
                          bucket_names[int(rec_bucket[i])],
-                         int(rec_pos0[i]), int(rec_mapq[i]), seq, qual, "*")
+                         int(rec_pos0[i]), int(rec_mapq[i]), seq, qual, cig)

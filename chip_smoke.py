@@ -7,16 +7,22 @@ Phases, each reported on its own line:
   1. environment: the card (nvidia-smi name and power limit), torch and
      CUDA versions, whether nvcc and triton are present; exits non-zero
      without a CUDA device;
-  2. build: the three CUDA kernels from bucketmap_tpu_torch/csrc with
-     nvcc for sm_90a;
+  2. build: the four CUDA kernels from bucketmap_tpu_torch/csrc, one
+     nvcc for sm_90a per source, all started together;
   3. world: the bench world (bench.py's seeded repeat genome, index and
      simulated 300 bp reads), cached under .bench_cache/;
   4. main path: BucketMapPipeline(..., device="cuda").map_fastq over all
      reads in batches of 16384, writing SAM; checks accuracy against the
      ground truth and that every kernel was launched;
-  5. kernels against their plain PyTorch versions on the main path's own
-     inputs from one batch: exact equality, and median times from CUDA
-     events.
+  5. map-stage kernels against their plain PyTorch versions on the main
+     path's own inputs from one batch: exact equality, and median times
+     from CUDA events;
+  6. align mode: BucketMapPipeline(..., align=True).map_fastq over the
+     same reads, DP sub-batches of 16384 pairs; checks accuracy, CIGAR
+     lengths and that the DP kernel and every map-stage kernel launched;
+  7. the DP kernel against its plain version on the first 4096 located
+     pairs of phase 6 (exact), its time alone at the full 16384-pair
+     sub-batch, and the device time of one whole align sub-batch.
 Any failure raises and exits non-zero. The last two lines are a JSON
 object per kernel and the run's JSON result.
 """
@@ -35,6 +41,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 BATCH = 16384
 COARSE_ROWS = 2048            # read-strands compared in the coarse check
 MIN_MAPPED, MIN_CORRECT = 97.0, 95.0
+DP_PAIRS = 4096               # located pairs in the DP check
+MAP_KERNELS = ("coarse_score", "fine_window", "tally")
 
 
 def log(msg: str) -> None:
@@ -57,6 +65,30 @@ def median_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def check_cigars(sam_path: str):
+    """(records, records with CIGAR '*', records whose CIGAR's M+I length
+    differs from the read length)."""
+    n = star = bad = 0
+    with open(sam_path) as f:
+        for line in f:
+            if line[0] == "@":
+                continue
+            c = line.split("\t", 10)
+            n += 1
+            if c[5] == "*":
+                star += 1
+                continue
+            num, qlen = 0, 0
+            for ch in c[5]:
+                if ch.isdigit():
+                    num = num * 10 + ord(ch) - 48
+                else:
+                    qlen += num if ch in "MI" else 0
+                    num = 0
+            bad += qlen != len(c[9])
+    return n, star, bad
 
 
 def max_abs_err(torch, got, want) -> int:
@@ -83,7 +115,9 @@ def main() -> int:
     log(card)
     sys.path.insert(0, HERE)
     from bucketmap_tpu_torch import kernels, world
+    from bucketmap_tpu_torch.device import upload_u32
     from bucketmap_tpu_torch.mapper.pipeline import BucketMapPipeline
+    from bucketmap_tpu_torch.ops.align import dp_fwd, dp_fwd_plain, pack_qcodes
     from bucketmap_tpu_torch.ops.coarse import coarse_score, coarse_score_plain
     from bucketmap_tpu_torch.ops.encoding import unpack_reads
     from bucketmap_tpu_torch.ops.vote import (fine_window, fine_window_plain,
@@ -147,7 +181,7 @@ def main() -> int:
         raise RuntimeError(f"accuracy below the floor: mapped {mapped:.2f} "
                            f"(>= {MIN_MAPPED}), correct {correct:.2f} "
                            f"(>= {MIN_CORRECT})")
-    idle = [k for k, n in launches.items() if n == 0]
+    idle = [k for k in MAP_KERNELS if launches[k] == 0]
     if idle:
         raise RuntimeError(f"main path never launched: {idle}")
 
@@ -204,6 +238,102 @@ def main() -> int:
         table, rows_all, index.n_buckets, s), reps=5, warmup=1)
     log(f"[kernel] coarse_score at the full batch "
         f"({rows_all.shape[0] // s} read-strands): {full_ms:.4f} ms")
+    del cases, pipe, dm, table, packed, c, q_ok, lens, both, rows_all, rows
+    del lanes, vargs, wargs, tgt_idx, pk, targs
+    torch.cuda.empty_cache()
+
+    # ---- 6. align mode ---------------------------------------------------
+    t0 = time.perf_counter()
+    pipe = BucketMapPipeline(index, device=dev, align=True, batch_size=BATCH,
+                             pair_batch=BATCH)
+    torch.cuda.synchronize()
+    log(f"[init] align pipeline ready in {time.perf_counter() - t0:.1f} s "
+        f"({torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated)")
+    al = pipe.aligner
+    first_sub = []
+    sub_batch = al._sub_batch
+
+    def keep_first(*a):
+        out = sub_batch(*a)
+        if not first_sub:
+            first_sub.append(out)
+        return out
+
+    al._sub_batch = keep_first
+    sam_al = os.path.join(HERE, ".bench_cache", "chip_smoke_align.sam")
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    stats = pipe.map_fastq(fastq, sam_al)
+    torch.cuda.synchronize()
+    align_s = time.perf_counter() - t0
+    al_launches = dict(kernels.LAUNCHES)
+    al._sub_batch = sub_batch
+    mapped, correct = world.score_sam(sam_al, gt, index)
+    n_rec, n_star, bad = check_cigars(sam_al)
+    log(f"[align] {stats.num_reads} reads in {align_s:.2f} s = "
+        f"{stats.num_reads / align_s:.1f} reads/s; pct_mapped {mapped:.2f} "
+        f"pct_correct_position(+-10) {correct:.2f} locations/read "
+        f"{stats.mapped_locations / stats.num_reads:.4f}; DP sub-batches "
+        f"{al.counts['sub_batches']} pairs {al.counts['pairs']} ops re-runs "
+        f"{al.counts['ops_reruns']}; locate (step+decode) "
+        f"{stats.fine_seconds:.2f} s, segmenting {stats.coarse_seconds:.2f} s, "
+        f"align+SAM {stats.output_seconds:.2f} s; records {n_rec} ('*' "
+        f"{n_star}); device peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
+        f"launches {al_launches}")
+    if stats.num_reads < args.reads:
+        raise RuntimeError(f"aligned {stats.num_reads} of {args.reads} reads")
+    if mapped < MIN_MAPPED or correct < MIN_CORRECT:
+        raise RuntimeError(f"align accuracy below the floor: mapped "
+                           f"{mapped:.2f} (>= {MIN_MAPPED}), correct "
+                           f"{correct:.2f} (>= {MIN_CORRECT})")
+    if bad:
+        raise RuntimeError(f"{bad} records have a CIGAR whose query length "
+                           f"is not the read length")
+    idle = [k for k, n in al_launches.items() if n == 0]
+    if idle:
+        raise RuntimeError(f"align path never launched: {idle}")
+
+    # ---- 7. the DP kernel on the main path's pairs ----------------------
+    qc, (qlen, bids, offs, is_rc, width) = first_sub[0]
+    Qp = -(-qc.shape[1] // 16) * 16            # the runs path's query width
+    qfull = torch.zeros((qc.shape[0], Qp), dtype=torch.uint8, device=dev)
+    qfull[:, :qc.shape[1]] = torch.from_numpy(qc.astype("uint8")).to(dev)
+    textp, band, lo = al._text_windows(Qp, bids, offs, is_rc, width)
+    n = DP_PAIRS
+    dargs = (textp[:n].contiguous(), qfull[:n].contiguous(),
+             qlen[:n].contiguous(), width[:n].contiguous(), band, lo)
+    got = dp_fwd(*dargs)
+    torch.cuda.synchronize()
+    want = dp_fwd_plain(*dargs)
+    err = max_abs_err(torch, got, want)
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    ms = median_ms(torch, lambda: dp_fwd(*dargs))
+    plain_ms = median_ms(torch, lambda: dp_fwd_plain(*dargs), reps=5, warmup=1)
+    log(f"[kernel] dp_fwd: {n} located pairs, Q {Qp}, band {band}, lo {lo}; "
+        f"equal {equal} max_abs_err {err}; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms")
+    if not equal:
+        raise RuntimeError("dp_fwd disagrees with its plain version")
+    report.append({"name": "dp_fwd", "route": "cuda",
+                   "source": "bucketmap_tpu_torch/csrc/dp_fwd.cu",
+                   "replaces": "bucketmap_tpu/ops/align.py:95",
+                   "launches": al_launches["dp_fwd"], "max_abs_err": err,
+                   "ms": ms, "plain_ms": plain_ms})
+    full = (textp, qfull, qlen, width, band, lo)
+    dp_full_ms = median_ms(torch, lambda: dp_fwd(*full), reps=5, warmup=1)
+    win_ms = median_ms(torch, lambda: al._text_windows(
+        Qp, bids, offs, is_rc, width), reps=5, warmup=1)
+    qpk = upload_u32(pack_qcodes(qc), dev)
+    run_cap = al.run_cap_per_pair * qc.shape[0]
+    sub_ms = median_ms(torch, lambda: al._align_runs(
+        qpk, qlen, bids, offs, is_rc, width, run_cap=run_cap), reps=5,
+        warmup=1)
+    log(f"[kernel] dp_fwd at the full sub-batch ({qc.shape[0]} pairs): "
+        f"{dp_full_ms:.4f} ms; one whole align sub-batch on the device "
+        f"(unpack, windows, DP, run traceback, RLE): {sub_ms:.4f} ms, of "
+        f"which windows {win_ms:.4f} ms and DP {dp_full_ms:.4f} ms")
     if "jax" in sys.modules:
         raise RuntimeError("jax was imported by the port")
 

@@ -1,5 +1,6 @@
-"""The torch port end to end: SAM bytes equal to the JAX pipeline's, the
-package running with no jax loaded, and the `map` command line."""
+"""The torch port end to end: SAM bytes equal to the JAX pipeline's,
+align-free and in align mode, the package running with no jax loaded,
+and the `map` command line."""
 
 import os
 import subprocess
@@ -63,6 +64,34 @@ def test_sam_matches_jax_pipeline(world, monkeypatch, ppr):
     assert bool(splits) == (ppr == 1)
 
 
+@pytest.mark.parametrize("qt", [None, 0])
+def test_align_sam_matches_jax_pipeline(world, monkeypatch, qt):
+    """Align mode: scores, begins, CIGARs, MAPQ (size_t wrap included) and
+    record order; the three 700 bp reads take the segment-stitched
+    long-read path."""
+    d, index, fastq = world
+    monkeypatch.setenv("BMTPU_DEVICE_FINE", "1")
+    tag = "d" if qt is None else qt
+    JaxPipeline(index, align=True, batch_size=128, pair_batch=64).map_fastq(
+        fastq, d / f"jax_align{tag}.sam", quality_threshold=qt)
+    pipe = BucketMapPipeline(index, device="cpu", align=True, batch_size=128,
+                             pair_batch=64)
+    long_calls = []
+    emit = pipe._align_long_emit
+    monkeypatch.setattr(pipe, "_align_long_emit",
+                        lambda *a: long_calls.append(len(a[2])) or emit(*a))
+    stats = pipe.map_fastq(fastq, d / f"torch_align{tag}.sam",
+                           quality_threshold=qt)
+    want = (d / f"jax_align{tag}.sam").read_bytes()
+    assert (d / f"torch_align{tag}.sam").read_bytes() == want
+    assert stats.num_reads == 303 and stats.mapped_locations > 280
+    assert long_calls and long_calls[0] >= 3
+    cigars = [ln.split(b"\t")[5] for ln in want.splitlines()
+              if not ln.startswith(b"@")]
+    assert any(b"I" in c or b"D" in c for c in cigars)
+    assert sum(c == b"*" for c in cigars) < len(cigars) // 10
+
+
 def test_filter_best_locations_matches_jax():
     rng = np.random.default_rng(3)
     for _ in range(200):
@@ -92,9 +121,10 @@ from bucketmap_tpu_torch.mapper.pipeline import BucketMapPipeline
 cfg, index, sim = _tiny_world()
 codes, quals, lengths = _batch(sim, cfg, 16)
 batch = ReadBatch.from_arrays([str(i) for i in range(16)], codes, quals, lengths)
-stats = BucketMapPipeline(index, device="cpu", batch_size=16,
-                          pair_batch=16).map_reads(batch, sys.argv[1])
-assert stats.mapped_locations > 0, stats
+for align in (False, True):
+    stats = BucketMapPipeline(index, device="cpu", align=align, batch_size=16,
+                              pair_batch=16).map_reads(batch, sys.argv[1])
+    assert stats.mapped_locations > 0, (align, stats)
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 print("ok", stats.mapped_locations)
 """
@@ -121,14 +151,33 @@ def test_cli_map_on_cpu(world):
     assert out.read_bytes() == (d / "direct.sam").read_bytes()
 
 
+def test_cli_map_align_on_cpu(world):
+    d, index, fastq = world
+    save_index(index, d, "idx_al")
+    out = d / "cli_align.sam"
+    res = subprocess.run(
+        [sys.executable, "-m", "bucketmap_tpu_torch.cli", "map", "-q", fastq,
+         "-i", "idx_al", "--index-dir", d, "-o", out, "--batch-size", "128",
+         "--device", "cpu", "--align"], cwd=REPO, env=_env(),
+        capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "Total mapped locations" in res.stdout
+    BucketMapPipeline(index, device="cpu", align=True, batch_size=128,
+                      pair_batch=128).map_fastq(fastq, d / "direct_align.sam")
+    assert out.read_bytes() == (d / "direct_align.sam").read_bytes()
+    assert b"M\t" in out.read_bytes()
+
+
 def test_cli_refuses_missing_cuda_and_align(world, capsys):
+    """No CUDA device: the command line and the pipeline refuse to map on
+    'cuda', align-free and in align mode, rather than fall back."""
     d, index, fastq = world
     import torch
     base = ["map", "-q", str(fastq), "-i", "idx", "--index-dir", str(d),
             "-o", str(d / "x.sam")]
     if not torch.cuda.is_available():
-        assert cli.main(base) == 1
-        assert "CUDA is not available" in capsys.readouterr().err
-    assert cli.main(base + ["--device", "cpu", "--align"]) == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BucketMapPipeline(index, device="cpu", align=True)
+        for extra in ([], ["--align"]):
+            assert cli.main(base + extra) == 1
+            assert "CUDA is not available" in capsys.readouterr().err
+        with pytest.raises(RuntimeError, match="cuda"):
+            BucketMapPipeline(index, device="cuda", align=True)
