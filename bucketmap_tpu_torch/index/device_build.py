@@ -8,13 +8,16 @@ last), pack each slot as (position << low_bits) | low bits of the hash,
 and find each 12-bit prefix's first slot with a batched searchsorted.
 The slots are stored tiled as (N, Tp, 128) with at least two spare
 128-slot rows, so a 3-row fine window never leaves a bucket's table;
-the slot order is the host build's (np.argsort(kind="stable")).
+the slot order is the host build's (np.argsort(kind="stable")). A row
+range builds one bucket shard's table, as
+`build_fine_index_on_device_sharded` does on each device of a mesh.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from bucketmap_tpu.index.builder import BucketIndex
 from bucketmap_tpu_torch.device import i64_to_i32, resolve_device, upload_u32
@@ -57,11 +60,18 @@ def _build_chunk(packed_rows, lengths_rows, k: int, lb: int, low_bits: int):
 
 
 def build_fine_index_on_device(index: BucketIndex, device,
-                               row_chunk: int = 1024):
+                               row_chunk: int = 1024, rows=None, group=None):
     """Device-resident (fine_packed (N, Tp, 128) int32, fine_ptab (N, 4097)
     int32, search_steps, low_bits) built from index.buckets_packed, or
     None when the packed encoding does not apply (k >= 16, 2k-12 outside
-    [0, 16], or positions that do not fit 32 - low_bits bits)."""
+    [0, 16], or positions that do not fit 32 - low_bits bits).
+
+    rows = (r0, r1) builds only bucket rows [r0, r1), one bucket shard's
+    table (build_fine_index_on_device_sharded): rows at or past n_buckets
+    are padding, every slot the sentinel and ptab all zero. With a
+    process group, search_steps comes from the max segment over the
+    group's ranks and the sentinel check covers all of them, as the JAX
+    sharded build takes its max over every shard."""
     dev = resolve_device(device)
     cfg = index.config
     k = cfg.query_seed
@@ -73,27 +83,31 @@ def build_fine_index_on_device(index: BucketIndex, device,
     low_bits = 2 * k - 12
     if not (0 <= low_bits <= 16) or lpos > (1 << (32 - low_bits)):
         return None
+    r0, r1 = (0, n) if rows is None else rows
     Tp = tiled_rows(lpos)
-    fp = torch.full((n, Tp * 128), -1, dtype=torch.int32, device=dev)
-    pt = torch.empty((n, 4097), dtype=torch.int32, device=dev)
+    fp = torch.full((r1 - r0, Tp * 128), -1, dtype=torch.int32, device=dev)
+    pt = torch.zeros((r1 - r0, 4097), dtype=torch.int32, device=dev)
     lengths = torch.from_numpy(
         np.asarray(index.bucket_lengths, np.int64)).to(dev)
     n_bad = torch.zeros((), dtype=torch.int64, device=dev)
     max_seg = torch.ones((), dtype=torch.int64, device=dev)
-    for s in range(0, n, row_chunk):
-        e = min(s + row_chunk, n)
-        rows = upload_u32(np.asarray(index.buckets_packed[s:e]), dev)
-        fpc, ptc, bad, ms = _build_chunk(rows, lengths[s:e], k, lb, low_bits)
-        fp[s:e, :lpos] = fpc
-        pt[s:e] = ptc
+    for s in range(r0, min(r1, n), row_chunk):
+        e = min(s + row_chunk, r1, n)
+        chunk = upload_u32(np.asarray(index.buckets_packed[s:e]), dev)
+        fpc, ptc, bad, ms = _build_chunk(chunk, lengths[s:e], k, lb, low_bits)
+        fp[s - r0:e - r0, :lpos] = fpc
+        pt[s - r0:e - r0] = ptc
         n_bad += bad
         max_seg = torch.maximum(max_seg, ms)
-        del fpc, ptc, rows
+        del fpc, ptc, chunk
+    if group is not None:
+        dist.all_reduce(n_bad, op=dist.ReduceOp.SUM, group=group)
+        dist.all_reduce(max_seg, op=dist.ReduceOp.MAX, group=group)
     if int(n_bad):
         raise ValueError(f"{int(n_bad)} fine slots equal the 0xFFFFFFFF "
                          f"sentinel; the packed fine index cannot hold them")
     steps = int(max(1, int(max_seg))).bit_length()
-    return fp.reshape(n, Tp, 128), pt, steps, low_bits
+    return fp.reshape(r1 - r0, Tp, 128), pt, steps, low_bits
 
 
 def check_fine_sentinel(fine_packed: np.ndarray, fine_ptab: np.ndarray) -> None:

@@ -1,9 +1,9 @@
-"""The per-batch device map step on one device.
+"""The per-batch device map step, on one device or over a mesh.
 
 Counterpart of `bucketmap_tpu/mapper/device_pipeline.py:DeviceMapper`
-without the mesh and remote-link branches. One step takes a batch of
-packed reads (encoding.pack_reads layout) and returns one int32 result
-vector, word for word the JAX step's:
+without the remote-link branches. One step takes a batch of packed reads
+(encoding.pack_reads layout) and returns one int32 result vector, word
+for word the JAX step's:
 
   coarse scoring -> locator sampling -> compaction of the valid
   (read, strand, candidate) lanes by scatter-by-rank -> chunked packed
@@ -12,12 +12,22 @@ vector, word for word the JAX step's:
 Where the JAX step skips vote chunks whose lanes are all padding with
 lax.cond, this step reads the valid-lane total to the host once per
 batch and votes only the live chunks; the results are the same.
+
+Mesh mode (mesh=parallel.sharding.make_mesh(...), one rank per shard):
+each rank maps its data shard's rows against its bucket shard's
+occupancy columns and fine tables. The ranks of a bucket group agree on
+each read-strand's max hit count (all-reduce MAX) and at-max count
+(all-reduce SUM), extract their local at-max buckets and merge the
+per-shard lists (all-gather + top-k); each rank then votes the pairs
+whose bucket it owns. The per-rank vectors are all-gathered, so every
+rank holds the JAX mesh step's concatenated vector and decodes it alike.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from bucketmap_tpu.index.builder import BucketIndex
 from bucketmap_tpu.ops.encoding import pack_reads
@@ -30,20 +40,36 @@ from bucketmap_tpu_torch.ops.coarse import CoarseMapper, coarse_tables
 from bucketmap_tpu_torch.ops.encoding import unpack_reads
 from bucketmap_tpu_torch.ops.vote import (MAX_OCC, FineLocator,
                                           locator_sample_tab)
+from bucketmap_tpu_torch.parallel.distributed import global_read_batch
 
 
-def build_tables(index: BucketIndex, device) -> dict:
+def shard_geometry(index: BucketIndex, Db: int) -> tuple[int, int, int]:
+    """(wr, npf, n_pad_global) of a Db-way bucket split: wr occupancy words
+    and npf = 32*wr bucket rows per shard, n_pad_global = npf*Db
+    (device_pipeline.py:213-220, with no 1024-word rounding)."""
+    wr = -(-index.qgram_words.shape[1] // Db)
+    return wr, 32 * wr, 32 * wr * Db
+
+
+def build_tables(index: BucketIndex, device, mesh=None) -> dict:
     """All device tables of the step: the coarse tables uploaded from the
-    host index, the fine tables built on the device."""
+    host index, the fine tables built on the device. With a mesh, this
+    rank's bucket shard: its occupancy columns and its npf fine rows."""
     dev = resolve_device(device)
-    built = build_fine_index_on_device(index, dev)
+    shard = rows = group = None
+    if mesh is not None:
+        wr, npf, _ = shard_geometry(index, mesh.Db)
+        shard = (mesh.bi, wr)
+        rows = (mesh.bi * npf, (mesh.bi + 1) * npf)
+        group = mesh.bucket_group
+    built = build_fine_index_on_device(index, dev, rows=rows, group=group)
     if built is None:
         raise NotImplementedError(
             "the packed fine index does not apply to this configuration "
             "(needs query_seed <= 15 and 0 <= 2*query_seed - 12 <= 16); "
             "the other vote paths are ROADMAP queue 1 item 9")
     fp, pt, steps, low_bits = built
-    tables = coarse_tables(index, dev)
+    tables = coarse_tables(index, dev, shard=shard)
     tables.update(fine_packed=fp, fine_ptab=pt, search_steps=steps,
                   low_bits=low_bits,
                   locator_sample_tab=locator_sample_tab(index, dev))
@@ -81,22 +107,54 @@ def tables_from_numpy(arrays: dict, device) -> dict:
 
 
 class DeviceMapper:
+    """The batch step on `device`. With a mesh, this rank's shard of the
+    mesh step (module docstring); coarse_path picks the coarse branch
+    ("fused" or "staged", ops/coarse.py)."""
+
     def __init__(self, index: BucketIndex, device, batch_size: int = 8192,
                  pairs_per_read: int = 4, vote_chunk: int = 1024,
-                 tables: dict | None = None):
+                 tables: dict | None = None, mesh=None,
+                 coarse_path: str = "fused"):
         self.device = resolve_device(device)
         self.index = index
         self.cfg = index.config
         self.batch_size = batch_size
         self.vote_chunk = vote_chunk
+        self.mesh = mesh
         if tables is None:
-            tables = build_tables(index, self.device)
-        self.coarse = CoarseMapper(index, self.device, tables)
+            tables = build_tables(index, self.device, mesh)
+        self.tables = tables
+        self.coarse = CoarseMapper(index, self.device, tables,
+                                   coarse_path=coarse_path)
         self.fine = FineLocator(index, self.device, tables)
-        p = batch_size * pairs_per_read
-        self.lane_budget = (p + vote_chunk - 1) // vote_chunk * vote_chunk
-        self.out_cap = self._pick_out_cap(batch_size)
-        self._init_pack_bits(batch_size)
+        if mesh is None:
+            self.Dd = self.Db = 1
+            self._npf = self._n_pad_global = None
+        else:
+            self._init_mesh()
+        p = batch_size * pairs_per_read // self.Db
+        if mesh is not None:
+            # the per-shard lane budget: the vote chunk shrinks to it
+            self.vote_chunk = min(self.vote_chunk, max(32, p))
+        self.lane_budget = -(-p // self.vote_chunk) * self.vote_chunk
+        if mesh is not None and \
+                self.lane_budget < 2 * self.cfg.max_candidate_buckets:
+            # a single row must fit one shard's budget (the split retry
+            # stops at one row)
+            raise ValueError(f"lane budget {self.lane_budget} is below "
+                             f"one read's candidates")
+        rows = batch_size // self.Dd
+        self.out_cap = self._pick_out_cap(rows)
+        self._init_pack_bits(rows)
+
+    def _init_mesh(self):
+        """Shard geometry (device_pipeline.py:_init_mesh): Dd data shards of
+        batch_size/Dd rows, Db bucket shards of npf = 32*wr buckets."""
+        self.Dd, self.Db = self.mesh.Dd, self.mesh.Db
+        if self.batch_size % self.Dd:
+            raise ValueError(f"batch_size {self.batch_size} does not split "
+                             f"over {self.Dd} data shards")
+        _, self._npf, self._n_pad_global = shard_geometry(self.index, self.Db)
 
     def _init_pack_bits(self, rows: int):
         """Bit layout of a packed accepted lane (2 uint32 words):
@@ -104,21 +162,22 @@ class DeviceMapper:
           w1 = offset | bucket_lo << ob
         lane < rows*2*C (la bits), votes clipped to 8 bits, offset < the
         packed bucket row length (ob bits), the bucket split around the
-        32-ob boundary."""
+        32-ob boundary; a mesh counts its padded buckets."""
         C = self.cfg.max_candidate_buckets
         nl = max(2, rows * 2 * C)
         self._lane_bits = (nl - 1).bit_length()
         lb = self.index.buckets_packed.shape[1] * 16
         self._off_bits = max(1, int(lb).bit_length())
-        nb = max(2, self.index.n_buckets)
+        nb = max(2, self._n_pad_global or self.index.n_buckets)
         bucket_bits = (nb - 1).bit_length()
         bhi_bits = max(0, bucket_bits - (32 - self._off_bits))
         assert self._lane_bits + 8 + bhi_bits <= 32, \
             (self._lane_bits, self._off_bits, bucket_bits)
 
     def _pick_out_cap(self, rows: int) -> int:
-        """Accepted-lane budget per batch: ~1 location per read on real
-        genomes, so 2x rows; overflow re-dispatches the batch split."""
+        """Accepted-lane budget per (shard-local) batch: ~1 location per
+        read on real genomes, so 2x rows; overflow re-dispatches the batch
+        split."""
         cap = min(self.lane_budget, max(4 * self.cfg.max_candidate_buckets,
                                         -(-2 * rows // 128) * 128))
         # votes are clipped to 8 bits in the packed lane (_init_pack_bits)
@@ -126,68 +185,140 @@ class DeviceMapper:
         return cap
 
     # ------------------------------------------------------------------
-    def compact_lanes(self, packed: torch.Tensor) -> dict:
-        """Coarse query, locator sampling and compaction of the valid
-        (read, strand, candidate) lanes into the lane budget by
-        scatter-by-rank (valid lanes first, in lane order; slot P is the
-        drop slot, and slots past total_valid read lane 0)."""
-        cfg = self.cfg
-        C = cfg.max_candidate_buckets
+    def _lanes(self, cand, own, codes, qual_ok, lengths, col0: int = 0,
+               nown: int | None = None) -> dict:
+        """Locator sampling and compaction of the owned (read, strand,
+        candidate) lanes into the lane budget by scatter-by-rank (owned
+        lanes first, in lane order; slot P is the drop slot, and slots
+        past the owned count read lane 0). The vote's bucket is the
+        candidate's row in this shard's tables, [col0, col0 + nown)."""
+        C = self.cfg.max_candidate_buckets
         P = self.lane_budget
         dev = self.device
-        codes, qual_ok, lengths = unpack_reads(packed, cfg.read_len,
-                                               cfg.query_seed)
-        cand, counts, _ = self.coarse.query(codes, qual_ok, lengths)
         samp_hash, samp_idx = self.fine.prepare(codes, qual_ok, lengths)
         flat = cand.reshape(-1)
         lane = torch.arange(flat.shape[0], dtype=torch.int64, device=dev)
-        valid = flat >= 0
-        rank = torch.cumsum(valid.to(torch.int64), dim=0)
-        dst = torch.where(valid & (rank - 1 < P), rank - 1, P)
+        rank = torch.cumsum(own.reshape(-1).to(torch.int64), dim=0)
+        dst = torch.where(own.reshape(-1) & (rank - 1 < P), rank - 1, P)
         sel = torch.zeros(P + 1, dtype=torch.int64, device=dev)
         sel = sel.scatter(0, dst, lane)[:P]
+        bucket = flat[sel].clamp(min=0).to(torch.int64)
+        vote_bucket = bucket if nown is None else \
+            (bucket - col0).clamp(0, nown - 1)
         return {
-            "counts": counts, "sel": sel, "total_valid": int(rank[-1]),
+            "sel": sel, "n_valid": int(rank[-1]),
             "lane_read": sel // (2 * C), "lane_rc": ((sel // C) % 2).bool(),
-            "lane_bucket": flat[sel].clamp(min=0).to(torch.int64),
+            "lane_bucket": bucket, "vote_bucket": vote_bucket,
             "samp_hash": samp_hash, "samp_idx": samp_idx, "lengths": lengths,
         }
+
+    def compact_lanes(self, packed: torch.Tensor) -> dict:
+        """Single device: coarse query, then every valid lane is owned.
+        The lanes of _lanes plus the per-read candidate counts."""
+        cfg = self.cfg
+        codes, qual_ok, lengths = unpack_reads(packed, cfg.read_len,
+                                               cfg.query_seed)
+        cand, counts, _ = self.coarse.query(codes, qual_ok, lengths)
+        lanes = self._lanes(cand, cand >= 0, codes, qual_ok, lengths)
+        lanes["counts"] = counts
+        return lanes
+
+    def sharded_lanes(self, packed: torch.Tensor) -> dict:
+        """Mesh: local scoring over this rank's bucket columns, the global
+        candidate policy through the bucket group's collectives (max and
+        at-max count of each read-strand, merge of the per-shard at-max
+        lists by top-k of n_pad - bucket), then the lanes of the pairs
+        whose bucket this rank owns (_sharded_step_impl)."""
+        cfg = self.cfg
+        C = cfg.max_candidate_buckets
+        mesh = self.mesh
+        group = mesh.bucket_group
+        n = self.coarse.n_buckets
+        npf, n_pad = self._npf, self._n_pad_global
+        col0 = mesh.bi * npf
+        codes, qual_ok, lengths = unpack_reads(packed, cfg.read_len,
+                                               cfg.query_seed)
+        cm, cc, planes, _, give_up = self.coarse.score(
+            codes, qual_ok, lengths, min(max(n - col0, 0), npf))
+        gmax = cm.amax(dim=2).contiguous()                          # (B, 2)
+        dist.all_reduce(gmax, op=dist.ReduceOp.MAX, group=group)
+        ok = (gmax >= cfg.min_coarse_hits) & ~give_up[:, None]
+        gcnt = torch.where((cm == gmax[:, :, None]) & ok[..., None], cc,
+                           0).sum(dim=2)
+        dist.all_reduce(gcnt, op=dist.ReduceOp.SUM, group=group)
+        over = gcnt > C                                            # clear
+        counts = torch.where(over, 0, gcnt).to(torch.int32)
+        cand_l = self.coarse.extract_at_max(planes, gmax, ok & ~over, n,
+                                            col0)
+        del cm, cc, planes
+        vals = torch.where(cand_l >= 0, n_pad - cand_l, 0).contiguous()
+        parts = [torch.empty_like(vals) for _ in range(mesh.Db)]
+        dist.all_gather(parts, vals, group=group)
+        # distinct values but the zeros: top-k order is lax.top_k's
+        gvals = torch.topk(torch.cat(parts, dim=-1), C, dim=-1).values
+        cand = torch.where(gvals > 0, n_pad - gvals, -1).to(torch.int32)
+        lanes = self._lanes(cand, (cand >= col0) & (cand < col0 + npf), codes,
+                            qual_ok, lengths, col0, npf)
+        lanes["counts"] = counts
+        return lanes
 
     def chunk_args(self, lanes: dict, ci: int):
         """FineLocator.vote arguments of vote chunk ci."""
         ch = self.vote_chunk
         sl = slice(ci * ch, (ci + 1) * ch)
         rd = lanes["lane_read"][sl]
-        return (lanes["lane_bucket"][sl], lanes["lane_rc"][sl],
+        return (lanes["vote_bucket"][sl], lanes["lane_rc"][sl],
                 lanes["samp_hash"][rd], lanes["samp_idx"][rd],
                 lanes["lengths"][rd])
 
-    def step_packed(self, packed: torch.Tensor) -> torch.Tensor:
-        """packed: (B, cw+qw+1) packed reads on the device. Returns the
-        packed int32 result vector (see _pack_result). Vote chunks are
-        live while their first lane is below total_valid; dead chunks
-        read zeros, as the JAX step's cond does."""
+    def _vote_and_pack(self, lanes: dict, total_valid: int,
+                       di: int = 0) -> torch.Tensor:
+        """Vote the live chunks (first lane below the owned count; dead
+        chunks read zeros, as the JAX step's cond does) and pack."""
         P = self.lane_budget
         ch = self.vote_chunk
         dev = self.device
-        lanes = self.compact_lanes(packed)
-        total_valid = lanes["total_valid"]
+        nv = lanes["n_valid"]
         off = torch.zeros(P, dtype=torch.int32, device=dev)
         votes = torch.zeros(P, dtype=torch.int32, device=dev)
         acc = torch.zeros(P, dtype=torch.int32, device=dev)
-        for ci in range(min(P // ch, -(-total_valid // ch))):
+        for ci in range(min(P // ch, -(-nv // ch))):
             sl = slice(ci * ch, (ci + 1) * ch)
             off[sl], votes[sl], acc[sl] = self.fine.vote(
                 *self.chunk_args(lanes, ci))
-        acc = acc.bool() & (torch.arange(P, device=dev) < total_valid)
+        acc = acc.bool() & (torch.arange(P, device=dev) < nv)
         return self._pack_result(acc, lanes["sel"], lanes["lane_bucket"], off,
-                                 votes, total_valid, lanes["counts"])
+                                 votes, total_valid, nv, lanes["counts"], di)
+
+    def step_packed(self, packed: torch.Tensor) -> torch.Tensor:
+        """packed: (B, cw+qw+1) packed reads on the device, with a mesh this
+        rank's B/Dd rows. Returns the packed int32 result vector (see
+        _pack_result); with a mesh, every rank's vector in (data, bucket)
+        order, on every rank."""
+        if self.mesh is None:
+            lanes = self.compact_lanes(packed)
+            return self._vote_and_pack(lanes, lanes["n_valid"])
+        vec = self.sharded_step_packed(packed)
+        parts = [torch.empty_like(vec) for _ in range(self.Dd * self.Db)]
+        dist.all_gather(parts, vec, group=self.mesh.world_group)
+        return torch.cat(parts)
+
+    def sharded_step_packed(self, packed: torch.Tensor) -> torch.Tensor:
+        """This rank's result vector of the mesh step; total_valid is the
+        owned-lane sum over the world. Every rank makes the same
+        collectives in the same order, none inside the vote loop."""
+        lanes = self.sharded_lanes(packed)
+        total = torch.tensor(lanes["n_valid"], dtype=torch.int64,
+                             device=self.device)
+        dist.all_reduce(total, op=dist.ReduceOp.SUM,
+                        group=self.mesh.world_group)
+        return self._vote_and_pack(lanes, int(total), self.mesh.di)
 
     def _pack_result(self, acc, sel, bucket, off, votes, total_valid: int,
-                     counts) -> torch.Tensor:
+                     local_valid: int, counts, di: int = 0) -> torch.Tensor:
         """One int32 vector, the inverse of decode_out:
-          [0]=n_accept [1]=total_valid [2]=local_valid (= total_valid)
-          [3]=out_cap [4:8]=0
+          [0]=n_accept [1]=total_valid [2]=local_valid [3]=out_cap
+          [4]=data-shard index [5:8]=0
           [8 : 8+B]          counts (B, 2) as c0 << 16 | c1
           [8+B : 8+B+2*cap]  accepted lanes, 2 words each (_init_pack_bits)
         Slots past n_accept repeat lane 0, as in the JAX step."""
@@ -209,42 +340,58 @@ class DeviceMapper:
         out2 = i64_to_i32(torch.stack([w0, w1], dim=1).reshape(-1))
         cw = i64_to_i32((counts[:, 0].to(torch.int64) << 16)
                         | counts[:, 1].to(torch.int64))
-        hdr = torch.tensor([total_valid, total_valid, OC, 0, 0, 0, 0],
+        hdr = torch.tensor([total_valid, local_valid, OC, di, 0, 0, 0],
                            dtype=torch.int32, device=dev)
         return torch.cat([arank[-1:].to(torch.int32), hdr, cw, out2])
 
     def decode_out(self, vec) -> dict:
-        """Host-side inverse of _pack_result: accepted lanes (lane_read,
+        """Host-side inverse of _pack_result over the Dd*Db vectors of a
+        step, concatenated in (data, bucket) order (one for a single
+        device): accepted lanes (lane_read as a row of the whole batch,
         lane_rc, lane_bucket, offset, votes), counts (B, 2), total_valid,
-        local_valid and n_accept (one shard)."""
+        and local_valid and n_accept per shard."""
         if isinstance(vec, torch.Tensor):
             vec = vec.cpu().numpy()
         vec = np.ascontiguousarray(vec, dtype=np.int32)
         B = self.batch_size
+        Dd, Db = self.Dd, self.Db
+        Bl = B // Dd
         C = self.cfg.max_candidate_buckets
         la, ob = self._lane_bits, self._off_bits
-        vl = 8 + B + 2 * self.out_cap
-        assert vec.shape[0] == vl, (vec.shape, vl)
-        na, total_valid, lv = int(vec[0]), int(vec[1]), int(vec[2])
-        cwu = vec[8: 8 + B].view(np.uint32)
-        counts = np.stack([cwu >> 16, cwu & 0xFFFF], axis=1).astype(np.int32)
-        out2 = vec[8 + B:].view(np.uint32).reshape(self.out_cap, 2)
-        out2 = out2[: min(na, self.out_cap)]
-        w0, w1 = out2[:, 0], out2[:, 1]
-        lane = (w0 & np.uint32((1 << la) - 1)).astype(np.int64)
-        bucket = ((w1 >> np.uint32(ob)).astype(np.int64)
-                  | ((w0 >> np.uint32(la + 8)).astype(np.int64) << (32 - ob)))
-        return {
-            "lane_read": lane // (2 * C),
-            "lane_rc": (lane // C) % 2 == 1,
-            "lane_bucket": bucket,
-            "offset": (w1 & np.uint32((1 << ob) - 1)).astype(np.int64),
-            "votes": ((w0 >> np.uint32(la)) & np.uint32(0xFF)).astype(np.int64),
-            "counts": counts,
-            "total_valid": total_valid,
-            "local_valid": np.array([lv], np.int32),
-            "n_accept": np.array([na], np.int32),
-        }
+        vl = 8 + Bl + 2 * self.out_cap
+        assert vec.shape[0] == Dd * Db * vl, (vec.shape, Dd, Db, vl)
+        counts = np.zeros((B, 2), np.int32)
+        cols = {k: [] for k in ("lane_read", "lane_rc", "lane_bucket",
+                                "offset", "votes")}
+        n_accept = np.zeros(Dd * Db, np.int32)
+        local_valid = np.zeros(Dd * Db, np.int32)
+        total_valid = 0
+        for d in range(Dd * Db):
+            v = vec[d * vl:(d + 1) * vl]
+            di, bi = divmod(d, Db)
+            na, total_valid, lv = int(v[0]), int(v[1]), int(v[2])
+            n_accept[d], local_valid[d] = na, lv
+            if bi == 0:  # counts are the same on every bucket shard
+                cw = v[8: 8 + Bl].view(np.uint32)
+                counts[di * Bl:(di + 1) * Bl, 0] = cw >> 16
+                counts[di * Bl:(di + 1) * Bl, 1] = cw & 0xFFFF
+            out2 = v[8 + Bl:].view(np.uint32).reshape(self.out_cap, 2)
+            out2 = out2[: min(na, self.out_cap)]
+            w0, w1 = out2[:, 0], out2[:, 1]
+            lane = (w0 & np.uint32((1 << la) - 1)).astype(np.int64)
+            cols["lane_read"].append(di * Bl + lane // (2 * C))
+            cols["lane_rc"].append((lane // C) % 2 == 1)
+            cols["lane_bucket"].append(
+                (w1 >> np.uint32(ob)).astype(np.int64)
+                | ((w0 >> np.uint32(la + 8)).astype(np.int64) << (32 - ob)))
+            cols["offset"].append((w1 & np.uint32((1 << ob) - 1))
+                                  .astype(np.int64))
+            cols["votes"].append(((w0 >> np.uint32(la)) & np.uint32(0xFF))
+                                 .astype(np.int64))
+        out = {k: np.concatenate(v) for k, v in cols.items()}
+        out.update(counts=counts, total_valid=total_valid,
+                   local_valid=local_valid, n_accept=n_accept)
+        return out
 
     # ------------------------------------------------------------------
     def pack(self, codes: np.ndarray, quals: np.ndarray,
@@ -262,6 +409,9 @@ class DeviceMapper:
         return host_tensor(u32_to_i32(packed)).to(self.device)
 
     def step(self, codes: np.ndarray, quals: np.ndarray, lengths: np.ndarray):
-        """Pack and upload a host batch and run the step; returns the
-        device result vector."""
+        """Pack and upload a host batch (with a mesh, this rank's rows of
+        it) and run the step; returns the device result vector."""
+        if self.mesh is not None:
+            codes, quals, lengths = global_read_batch(self.mesh, codes, quals,
+                                                      lengths)
         return self.step_packed(self.pack(codes, quals, lengths))

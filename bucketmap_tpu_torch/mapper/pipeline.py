@@ -8,6 +8,12 @@ merged per read (filter_best_locations semantics); in align mode every
 location goes through the banded aligner, which gives the CIGAR and the
 MAPQ. Records are written as SAM through the JAX package's SamWriter and
 native formatter, so the bytes match the reference's.
+
+With a mesh (parallel.sharding.make_mesh), every rank parses the same
+reads and runs the same batches through the mesh step; the result
+vectors are all-gathered, so every rank decodes the same locations and
+takes the same split-retry decisions. Only rank 0 aligns (with its own
+copy of the genome) and writes the SAM.
 """
 
 from __future__ import annotations
@@ -93,7 +99,8 @@ class MapStats:
 class BucketMapPipeline:
     def __init__(self, index: BucketIndex, *, device, align: bool = False,
                  batch_size: int = 512, pair_batch: int = 256,
-                 pairs_per_read: int = 4):
+                 pairs_per_read: int = 4, mesh=None,
+                 coarse_path: str = "fused"):
         self.index = index
         self.cfg = index.config
         self.align = align
@@ -101,11 +108,14 @@ class BucketMapPipeline:
         dev = resolve_device(device)
         self.device = DeviceMapper(index, dev, batch_size=batch_size,
                                    pairs_per_read=pairs_per_read,
-                                   vote_chunk=min(4096, pair_batch, batch_size))
+                                   vote_chunk=min(4096, pair_batch, batch_size),
+                                   mesh=mesh, coarse_path=coarse_path)
+        # rank 0 of a mesh writes the SAM; the other ranks only map
+        self.emits = mesh is None or mesh.rank == 0
         # the aligner holds its own copy of the packed genome: the fine
         # stage uploads it in slabs and keeps none
         self.aligner = (BandedAligner(index, dev, pair_batch=pair_batch)
-                        if align else None)
+                        if align and self.emits else None)
         self._bucket_sam_offset = index.ref_offset_of_bucket()
 
     # ------------------------------------------------------------------
@@ -276,8 +286,7 @@ class BucketMapPipeline:
         are dropped."""
         qt = self._threshold(quality_threshold)
         stats = MapStats()
-        writer = SamWriter(sam_path, list(self.index.ref_names),
-                           self.index.sam_ref_lengths())
+        writer = self._writer(sam_path)
         q: queue.Queue = queue.Queue(maxsize=1)
         rerr: list[BaseException] = []
         stop = threading.Event()
@@ -314,7 +323,8 @@ class BucketMapPipeline:
         finally:
             stop.set()
             thr.join()
-            writer.close()
+            if writer is not None:
+                writer.close()
         if rerr:
             raise rerr[0]
         return stats
@@ -324,13 +334,19 @@ class BucketMapPipeline:
         """Map one in-memory ReadBatch."""
         qt = self._threshold(quality_threshold)
         stats = MapStats()
-        writer = SamWriter(sam_path, list(self.index.ref_names),
-                           self.index.sam_ref_lengths())
+        writer = self._writer(sam_path)
         try:
             self._map_batch(writer, batch, qt, stats)
         finally:
-            writer.close()
+            if writer is not None:
+                writer.close()
         return stats
+
+    def _writer(self, sam_path) -> SamWriter | None:
+        if not self.emits:
+            return None
+        return SamWriter(sam_path, list(self.index.ref_names),
+                         self.index.sam_ref_lengths())
 
     def _threshold(self, quality_threshold: int | None) -> int:
         return (self.cfg.quality_threshold if quality_threshold is None
@@ -340,7 +356,12 @@ class BucketMapPipeline:
         """Locate, merge and write one ReadBatch; a writer thread merges
         and formats earlier chunks while the device maps the next. Align
         mode locates the whole batch first and then aligns all its
-        locations in sub-batches."""
+        locations in sub-batches. A mesh rank other than 0 maps the batch
+        and writes nothing."""
+        if not self.emits:
+            for _ in self.locate_chunks(batch, stats):
+                pass
+            return
         if self.align:
             chunks = list(self.locate_chunks(batch, stats))
             t0 = time.perf_counter()

@@ -1,17 +1,26 @@
 """Coarse stage on torch: score every bucket against each read's sampled
 k-mers and keep the buckets at the maximum hit count.
 
-Counterpart of `bucketmap_tpu/ops/coarse.py:CoarseMapper` (single
-device). The per-bucket hit count of a read-strand is the number of its
-s sampled k-mers whose nq q-gram occupancy rows all have the bucket's
-bit; the candidates are the buckets at the maximum count, cleared when
-the maximum is below min_coarse_hits, the read gave up, or more than
-max_candidate_buckets tie. The counting runs in the coarse-score kernel
-(`csrc/coarse_score.cu`) on CUDA tensors and in `coarse_score_plain` on
-CPU tensors.
+Counterpart of `bucketmap_tpu/ops/coarse.py:CoarseMapper`. The per-bucket
+hit count of a read-strand is the number of its s sampled k-mers whose nq
+q-gram occupancy rows all have the bucket's bit; the candidates are the
+buckets at the maximum count, cleared when the maximum is below
+min_coarse_hits, the read gave up, or more than max_candidate_buckets tie.
+
+The counting takes one of the JAX package's two branches
+(`coarse_path`):
+  * "fused": one kernel gathers the rows, ANDs them and counts
+    (`csrc/coarse_score.cu`, for `_coarse_score_pallas`);
+  * "staged": the per-sample presence words are gathered first
+    (`csrc/presence_gather.cu`, for `_presence_gather_pallas`) and then
+    counted (`csrc/chunk_scan.cu`, for `_chunk_scan_pallas`).
+Both give the same words. On CPU tensors each kernel runs as its plain
+PyTorch version.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -59,32 +68,56 @@ def rank_select(rank: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return torch.where(idx < rank.shape[-1], idx, 0)
 
 
+def presence_gather_plain(table: torch.Tensor,
+                          rows: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the presence-gather kernel.
+
+    table: (G1, w) int32 occupancy words; rows: (R, nq) table rows of each
+    sample's q-grams. Returns (R, w) int32: per sample, the AND of its nq
+    rows (_presence_gather_pallas)."""
+    rows = rows.to(torch.int64)
+    out = table[rows[:, 0]]
+    for q in range(1, rows.shape[1]):
+        out = out & table[rows[:, q]]
+    return out
+
+
+def chunk_scan_plain(presence: torch.Tensor, bound: int):
+    """Plain PyTorch version of the chunk-scan kernel.
+
+    presence: (..., s, w) int32 presence words of s samples; bound: first
+    out-of-range bucket. The s words ripple-carry into s.bit_length()
+    bit planes, then each word reduces to its max count and at-max count
+    over the buckets below `bound`. Returns (cm (..., w) int32, cc (..., w)
+    int32, planes (..., n_planes, w) int32), as _chunk_scan_jnp does
+    without its 128-word tile padding."""
+    s, w = presence.shape[-2:]
+    planes = [torch.zeros(presence.shape[:-2] + (w,), dtype=torch.int32,
+                          device=presence.device)
+              for _ in range(s.bit_length())]
+    for i in range(s):
+        carry = presence[..., i, :]
+        for j in range(len(planes)):
+            t = planes[j] & carry
+            planes[j] = planes[j] ^ carry
+            carry = t
+    colbase = torch.arange(w, dtype=torch.int64, device=presence.device) * 32
+    cm, cc = word_max_cnt(planes, valid_word_mask(colbase, bound))
+    return cm, cc, torch.stack(planes, dim=-2)
+
+
 def coarse_score_plain(table: torch.Tensor, rows: torch.Tensor, bound: int,
                        s: int):
-    """Plain PyTorch version of the coarse-score kernel.
+    """Plain PyTorch version of the coarse-score kernel: the staged pair's
+    plain versions one after the other.
 
     table: (G1, w) int32 occupancy words; rows: (B2*s, nq) table rows of
     each sample's q-grams, s samples per read-strand, sample-minor;
     bound: first out-of-range bucket. Returns (cm (B2, w) int32, cc (B2, w)
     int32, planes (B2, n_planes, w) int32) as _coarse_score_pallas does."""
-    R, nq = rows.shape
-    B2 = R // s
-    w = table.shape[1]
-    n_planes = s.bit_length()
-    rows3 = rows.reshape(B2, s, nq).to(torch.int64)
-    planes = [torch.zeros((B2, w), dtype=torch.int32, device=table.device)
-              for _ in range(n_planes)]
-    for i in range(s):
-        carry = table[rows3[:, i, 0]]
-        for q in range(1, nq):
-            carry = carry & table[rows3[:, i, q]]
-        for j in range(n_planes):
-            t = planes[j] & carry
-            planes[j] = planes[j] ^ carry
-            carry = t
-    colbase = torch.arange(w, dtype=torch.int64, device=table.device) * 32
-    cm, cc = word_max_cnt(planes, valid_word_mask(colbase, bound)[None])
-    return cm, cc, torch.stack(planes, dim=1)
+    B2 = rows.shape[0] // s
+    presence = presence_gather_plain(table, rows)
+    return chunk_scan_plain(presence.reshape(B2, s, table.shape[1]), bound)
 
 
 def coarse_score(table: torch.Tensor, rows: torch.Tensor, bound: int, s: int):
@@ -115,9 +148,66 @@ def coarse_score(table: torch.Tensor, rows: torch.Tensor, bound: int, s: int):
     return cm, cc, planes
 
 
-def coarse_tables(index: BucketIndex, device) -> dict:
+def presence_gather(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Presence gather: the CUDA kernel on a CUDA table, the plain version
+    on a CPU table. Same arguments and result as presence_gather_plain."""
+    if table.device.type == "cpu":
+        return presence_gather_plain(table, rows)
+    R, nq = rows.shape
+    G1, w = table.shape
+    kernels.require(table, "table", torch.int32, (G1, w))
+    kernels.require(rows, "rows", torch.int32, (R, nq))
+    if rows.device != table.device:
+        raise ValueError("rows and table must be on the same device")
+    out = torch.empty((R, w), dtype=torch.int32, device=table.device)
+    err = kernels.library().bm_presence_gather(
+        table.data_ptr(), w, rows.data_ptr(), R, nq, out.data_ptr(),
+        kernels.stream_handle(table))
+    kernels.check(err, "presence_gather")
+    kernels.LAUNCHES["presence_gather"] += 1
+    return out
+
+
+def chunk_scan(presence: torch.Tensor, bound: int):
+    """Chunk scan: the CUDA kernel on a CUDA tensor, the plain version on
+    a CPU tensor. Same arguments and results as chunk_scan_plain."""
+    if presence.device.type == "cpu":
+        return chunk_scan_plain(presence, bound)
+    kernels.require(presence, "presence", torch.int32)
+    if presence.dim() < 2:
+        raise ValueError("presence must be (..., s, w)")
+    lead, (s, w) = presence.shape[:-2], presence.shape[-2:]
+    n_planes = s.bit_length()
+    dev = presence.device
+    cm = torch.empty(lead + (w,), dtype=torch.int32, device=dev)
+    cc = torch.empty(lead + (w,), dtype=torch.int32, device=dev)
+    planes = torch.empty(lead + (n_planes, w), dtype=torch.int32, device=dev)
+    err = kernels.library().bm_chunk_scan(
+        presence.data_ptr(), math.prod(lead), s, w, n_planes,
+        int(bound), cm.data_ptr(), cc.data_ptr(), planes.data_ptr(),
+        kernels.stream_handle(presence))
+    kernels.check(err, "chunk_scan")
+    kernels.LAUNCHES["chunk_scan"] += 1
+    return cm, cc, planes
+
+
+def occupancy_shard(qgram_words: np.ndarray, bi: int, wr: int) -> np.ndarray:
+    """Bucket shard bi's occupancy columns: words [bi*wr, (bi+1)*wr) of the
+    (G1, w) table, zero past w (device_pipeline.py:232-240 without the
+    1024-word rounding)."""
+    qw = np.asarray(qgram_words)
+    w = qw.shape[1]
+    lo = min(bi * wr, w)
+    hi = min(lo + wr, w)
+    out = np.zeros((qw.shape[0], wr), qw.dtype)
+    out[:, : hi - lo] = qw[:, lo:hi]
+    return out
+
+
+def coarse_tables(index: BucketIndex, device, shard=None) -> dict:
     """The coarse stage's device tables, from the host-built index:
-    occupancy words (the 1024-word TPU row padding left out), the
+    occupancy words (the 1024-word TPU row padding left out; with shard =
+    (bi, wr), bucket shard bi's columns as occupancy_shard cuts them), the
     FracMinHash row map with unsampled q-grams sent to the all-ones
     sentinel row, the distinguishability gate table and the mapper's
     sample table."""
@@ -138,8 +228,11 @@ def coarse_tables(index: BucketIndex, device) -> dict:
         dist_tab = dist.astype(np.uint8)
     else:
         dist_tab = per_gram.astype(np.uint8)
+    qw = np.asarray(index.qgram_words)
+    if shard is not None:
+        qw = occupancy_shard(qw, *shard)
     return {
-        "qgram_words": upload_u32(np.asarray(index.qgram_words), device),
+        "qgram_words": upload_u32(qw, device),
         "kmer_to_row": torch.from_numpy(k2r_m.astype(np.int64)).to(device),
         "dist_tab": torch.from_numpy(dist_tab).to(device),
         "mapper_sample_tab": torch.from_numpy(
@@ -148,10 +241,20 @@ def coarse_tables(index: BucketIndex, device) -> dict:
     }
 
 
-class CoarseMapper:
-    """Holds the coarse tables on one device and runs the batch query."""
+COARSE_PATHS = ("fused", "staged")
 
-    def __init__(self, index: BucketIndex, device, tables: dict | None = None):
+
+class CoarseMapper:
+    """Holds the coarse tables on one device and runs the batch query.
+    coarse_path picks the counting branch ("fused" or "staged", see the
+    module docstring); the table may be one bucket shard's columns."""
+
+    def __init__(self, index: BucketIndex, device, tables: dict | None = None,
+                 coarse_path: str = "fused"):
+        if coarse_path not in COARSE_PATHS:
+            raise ValueError(f"coarse_path must be one of {COARSE_PATHS}, "
+                             f"got {coarse_path!r}")
+        self.coarse_path = coarse_path
         self.device = resolve_device(device)
         cfg = index.config
         cfg.validate()
@@ -211,12 +314,44 @@ class CoarseMapper:
         rows = grams if self.k2r_identity else self.kmer_to_row[grams]
         return rows.reshape(-1, nq).to(torch.int32).contiguous()
 
-    def extract_at_max(self, planes, max_hits, live):
+    def presence(self, codes, qual_ok, lengths):
+        """Per-sample bucket presence over this table's columns: each
+        sample's words are the AND of its nq q-gram occupancy rows
+        (_presence_impl). Returns (presence (B, 2, s, w) int32, num_good
+        (B,) int32, give_up (B,) bool)."""
+        B = codes.shape[0]
+        w = self.qgram_words.shape[1]
+        both, num_good, give_up = self.sample_hashes(codes, qual_ok, lengths)
+        pres = presence_gather(self.qgram_words, self.gram_rows(both))
+        return (pres.reshape(B, 2, self.cfg.mapper_samples, w), num_good,
+                give_up)
+
+    def score(self, codes, qual_ok, lengths, bound: int):
+        """Per-word max hit count, at-max count and bit planes of every
+        read-strand over this table's columns, buckets from `bound` on
+        masked, through the coarse_path branch. Returns (cm (B, 2, w),
+        cc (B, 2, w), planes (B, 2, n_planes, w), num_good (B,), give_up
+        (B,))."""
+        if self.coarse_path == "staged":
+            presence, num_good, give_up = self.presence(codes, qual_ok,
+                                                        lengths)
+            cm, cc, planes = chunk_scan(presence, bound)
+            return cm, cc, planes, num_good, give_up
+        B = codes.shape[0]
+        w = self.qgram_words.shape[1]
+        both, num_good, give_up = self.sample_hashes(codes, qual_ok, lengths)
+        cm, cc, planes = coarse_score(self.qgram_words, self.gram_rows(both),
+                                      bound, self.cfg.mapper_samples)
+        return (cm.reshape(B, 2, w), cc.reshape(B, 2, w),
+                planes.reshape(B, 2, -1, w), num_good, give_up)
+
+    def extract_at_max(self, planes, max_hits, live, n: int, col0: int = 0):
         """Bucket ids at the read-strand's max hit count, ascending, -1
         padded to (B, 2, C): flag words of the buckets whose packed count
         equals max_hits, then the c-th set bit of each row found by a
         search over the running popcount and a halving ladder inside its
-        word (coarse.py:_extract_at_max2)."""
+        word (coarse.py:_extract_at_max2). planes cover the buckets from
+        col0 on; buckets from n on are masked."""
         C = self.cfg.max_candidate_buckets
         B, two, n_planes, nc = planes.shape
         eq = None
@@ -226,7 +361,7 @@ class CoarseMapper:
             term = torch.where(gb, pj, ~pj)
             eq = term if eq is None else (eq & term)
         colbase = torch.arange(nc, dtype=torch.int64, device=planes.device) * 32
-        vmask = valid_word_mask(colbase, self.n_buckets)
+        vmask = valid_word_mask(colbase, n - col0)
         eq = torch.where(live[..., None], eq & vmask, 0)
         pop = popcount32(eq).to(torch.int64)                        # (B,2,nc)
         wrank = torch.cumsum(pop, dim=-1)                           # inclusive
@@ -244,7 +379,7 @@ class CoarseMapper:
             r = torch.where(hi, r - lowc, r)
             pos = pos + torch.where(hi, width, 0)
             wval = torch.where(hi, wval >> width, wval)
-        return torch.where(valid, word * 32 + pos, -1).to(torch.int32)
+        return torch.where(valid, col0 + word * 32 + pos, -1).to(torch.int32)
 
     def query(self, codes, qual_ok, lengths):
         """codes (B, L) uint8, qual_ok (B, L-k+1) bool, lengths (B,) int.
@@ -252,21 +387,16 @@ class CoarseMapper:
         int32; num_good (B,) int32). Axis 1: 0 = original strand, 1 =
         reverse complement."""
         cfg = self.cfg
-        B = codes.shape[0]
-        w = self.qgram_words.shape[1]
-        both, num_good, give_up = self.sample_hashes(codes, qual_ok, lengths)
-        cm, cc, planes = coarse_score(self.qgram_words, self.gram_rows(both),
-                                      self.n_buckets, cfg.mapper_samples)
-        cm = cm.reshape(B, 2, w)
-        cc = cc.reshape(B, 2, w)
-        planes = planes.reshape(B, 2, -1, w)
+        n = self.n_buckets
+        cm, cc, planes, num_good, give_up = self.score(codes, qual_ok,
+                                                       lengths, n)
         max_hits = cm.amax(dim=2)                                   # (B, 2)
         ok = (max_hits >= cfg.min_coarse_hits) & ~give_up[:, None]
         counts = torch.where((cm == max_hits[:, :, None]) & ok[..., None],
                              cc, 0).sum(dim=2).to(torch.int32)
         over = counts > cfg.max_candidate_buckets                  # clear
         counts = torch.where(over, 0, counts).to(torch.int32)
-        cand = self.extract_at_max(planes, max_hits, ok & ~over)
+        cand = self.extract_at_max(planes, max_hits, ok & ~over, n)
         return cand, counts, num_good
 
     def query_batch(self, codes: np.ndarray, quals: np.ndarray,

@@ -22,17 +22,28 @@ Phases, each reported on its own line:
      lengths and that the DP kernel and every map-stage kernel launched;
   7. the DP kernel against its plain version on the first 4096 located
      pairs of phase 6 (exact), its time alone at the full 16384-pair
-     sub-batch, and the device time of one whole align sub-batch.
-Any failure raises and exits non-zero. The last two lines are a JSON
-object per kernel and the run's JSON result.
+     sub-batch, and the device time of one whole align sub-batch;
+  8. the mesh step on torch.distributed (nccl, one rank, mesh (1, 1)):
+     the staged coarse branch's two kernels against their plain versions
+     on phase 5's rows (exact, times), one batch through the mesh step
+     with each coarse path (word for word the single-device step of
+     phase 5), then BucketMapPipeline(mesh=..., coarse_path="staged")
+     over all reads: SAM byte for byte phase 4's, the accuracy floors,
+     and the staged kernels launched in place of the fused one.
+Each phase checks the launches of the kernels its path runs. Any failure
+raises and exits non-zero. The last two lines are a JSON object per
+kernel and the run's JSON result.
 """
 
 from __future__ import annotations
 
 import argparse
+import filecmp
+import gc
 import importlib.util
 import json
 import os
+import socket
 import subprocess
 import sys
 import time
@@ -43,6 +54,8 @@ COARSE_ROWS = 2048            # read-strands compared in the coarse check
 MIN_MAPPED, MIN_CORRECT = 97.0, 95.0
 DP_PAIRS = 4096               # located pairs in the DP check
 MAP_KERNELS = ("coarse_score", "fine_window", "tally")
+ALIGN_KERNELS = MAP_KERNELS + ("dp_fwd",)
+STAGED_KERNELS = ("presence_gather", "chunk_scan", "fine_window", "tally")
 
 
 def log(msg: str) -> None:
@@ -91,9 +104,135 @@ def check_cigars(sam_path: str):
     return n, star, bad
 
 
+def card_name_and_limit() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True
+    ).stdout.strip().splitlines()[0]
+
+
+def free_port() -> int:
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
 def max_abs_err(torch, got, want) -> int:
     return max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
                if a.numel() else 0 for a, b in zip(got, want))
+
+
+def mesh_phase(torch, index, fastq, gt, sam, dev, rows_all, packed,
+               vec_single) -> list:
+    """Phase 8, on the one rank of an initialized nccl group: the staged
+    kernels against their plain versions, the mesh step with each coarse
+    path against the single-device step, and the staged mesh pipeline
+    against phase 4's SAM. Returns the staged kernels' report entries."""
+    from bucketmap_tpu_torch import kernels, world
+    from bucketmap_tpu_torch.mapper.device_pipeline import DeviceMapper
+    from bucketmap_tpu_torch.mapper.pipeline import BucketMapPipeline
+    from bucketmap_tpu_torch.ops.coarse import (chunk_scan, chunk_scan_plain,
+                                                presence_gather,
+                                                presence_gather_plain)
+    from bucketmap_tpu_torch.parallel import sharding
+
+    n = index.n_buckets
+    s = index.config.mapper_samples
+    mesh = sharding.make_mesh(1, 1)
+    t0 = time.perf_counter()
+    pipe = BucketMapPipeline(index, device=dev, batch_size=BATCH,
+                             pair_batch=BATCH, mesh=mesh, coarse_path="staged")
+    torch.cuda.synchronize()
+    dm = pipe.device
+    table = dm.coarse.qgram_words
+    w = table.shape[1]
+    log(f"[mesh] nccl, world size 1, mesh {mesh.shape}: staged pipeline "
+        f"ready in {time.perf_counter() - t0:.1f} s (lane budget "
+        f"{dm.lane_budget}, vote chunk {dm.vote_chunk}, out_cap {dm.out_cap})")
+
+    # the staged kernels on the main path's rows (phase 5's first batch)
+    rows = rows_all[: COARSE_ROWS * s].contiguous()
+    presence = presence_gather(table, rows).reshape(COARSE_ROWS // 2, 2, s, w)
+    cases = [
+        ("presence_gather", "bucketmap_tpu_torch/csrc/presence_gather.cu",
+         "bucketmap_tpu/ops/coarse.py:179",
+         lambda: (presence_gather(table, rows),),
+         lambda: (presence_gather_plain(table, rows),),
+         f"{rows.shape[0]} samples ({COARSE_ROWS} read-strands x {s}) x "
+         f"{rows.shape[1]} rows x {w} words"),
+        ("chunk_scan", "bucketmap_tpu_torch/csrc/chunk_scan.cu",
+         "bucketmap_tpu/ops/coarse.py:94",
+         lambda: chunk_scan(presence, n), lambda: chunk_scan_plain(presence, n),
+         f"{COARSE_ROWS} read-strands x {s} samples x {w} words"),
+    ]
+    report = []
+    for name, src, replaces, kern, plain, shape in cases:
+        got = kern()
+        torch.cuda.synchronize()
+        want = plain()
+        err = max_abs_err(torch, got, want)
+        equal = all(torch.equal(a, b) for a, b in zip(got, want))
+        ms = median_ms(torch, kern)
+        plain_ms = median_ms(torch, plain, reps=5, warmup=1)
+        log(f"[kernel] {name}: {shape}; equal {equal} max_abs_err {err}; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        if not equal:
+            raise RuntimeError(f"{name} disagrees with its plain version")
+        report.append({"name": name, "route": "cuda", "source": src,
+                       "replaces": replaces, "launches": 0,
+                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+    B2 = rows_all.shape[0] // s
+    gather_ms = median_ms(torch, lambda: presence_gather(table, rows_all),
+                          reps=5, warmup=1)
+    full = presence_gather(table, rows_all).reshape(B2 // 2, 2, s, w)
+    scan_ms = median_ms(torch, lambda: chunk_scan(full, n), reps=5, warmup=1)
+    log(f"[kernel] staged pair at the full batch ({B2} read-strands, "
+        f"presence {full.numel() * 4 / 1e9:.2f} GB): presence_gather "
+        f"{gather_ms:.4f} ms, chunk_scan {scan_ms:.4f} ms")
+    del presence, full, cases
+
+    # one batch through the mesh step, each coarse path
+    fused = DeviceMapper(index, dev, batch_size=BATCH, vote_chunk=dm.vote_chunk,
+                         tables=dm.tables, mesh=mesh)
+    for path, mdm in (("staged", dm), ("fused", fused)):
+        vec = mdm.step_packed(packed).cpu()
+        equal = torch.equal(vec, vec_single)
+        log(f"[mesh] step ({path}) on phase 5's batch: {vec.shape[0]} words, "
+            f"equal to the single-device step {equal}")
+        if not equal:
+            raise RuntimeError(f"the mesh step ({path}) differs from the "
+                               f"single-device step")
+    del fused
+
+    # the staged mesh pipeline over all reads
+    sam_mesh = os.path.join(HERE, ".bench_cache", "chip_smoke_mesh.sam")
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    stats = pipe.map_fastq(fastq, sam_mesh)
+    torch.cuda.synchronize()
+    map_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    mapped, correct = world.score_sam(sam_mesh, gt, index)
+    same = filecmp.cmp(sam, sam_mesh, shallow=False)
+    log(f"[mesh] staged mesh pipeline: {stats.num_reads} reads in "
+        f"{map_s:.2f} s = {stats.num_reads / map_s:.1f} reads/s; pct_mapped "
+        f"{mapped:.2f} pct_correct_position(+-10) {correct:.2f}; SAM equal "
+        f"to phase 4's {same}; step+decode {stats.fine_seconds:.2f} s; "
+        f"device peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
+        f"launches {launches}; card {card_name_and_limit()}")
+    if not same:
+        raise RuntimeError("the staged mesh pipeline's SAM differs from the "
+                           "single-device SAM")
+    if mapped < MIN_MAPPED or correct < MIN_CORRECT:
+        raise RuntimeError(f"mesh accuracy below the floor: mapped "
+                           f"{mapped:.2f}, correct {correct:.2f}")
+    idle = [k for k in STAGED_KERNELS if launches[k] == 0]
+    if idle or launches["coarse_score"]:
+        raise RuntimeError(f"the staged path launched {launches}")
+    for entry in report:
+        entry["launches"] = launches[entry["name"]]
+    return report
 
 
 def main() -> int:
@@ -108,10 +247,7 @@ def main() -> int:
         print("[env] torch.cuda.is_available() is false: this run needs a "
               "CUDA GPU", file=sys.stderr)
         return 1
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True
-    ).stdout.strip().splitlines()[0]
+    card = card_name_and_limit()
     log(card)
     sys.path.insert(0, HERE)
     from bucketmap_tpu_torch import kernels, world
@@ -119,6 +255,7 @@ def main() -> int:
     from bucketmap_tpu_torch.mapper.pipeline import BucketMapPipeline
     from bucketmap_tpu_torch.ops.align import dp_fwd, dp_fwd_plain, pack_qcodes
     from bucketmap_tpu_torch.ops.coarse import coarse_score, coarse_score_plain
+    from bucketmap_tpu_torch.parallel import distributed
     from bucketmap_tpu_torch.ops.encoding import unpack_reads
     from bucketmap_tpu_torch.ops.vote import (fine_window, fine_window_plain,
                                               tally, tally_plain)
@@ -184,6 +321,9 @@ def main() -> int:
     idle = [k for k in MAP_KERNELS if launches[k] == 0]
     if idle:
         raise RuntimeError(f"main path never launched: {idle}")
+    if launches["presence_gather"] or launches["chunk_scan"]:
+        raise RuntimeError(f"the fused path launched the staged kernels: "
+                           f"{launches}")
 
     # ---- 5. kernels against plain versions on main-path inputs ----------
     dm = pipe.device
@@ -238,7 +378,9 @@ def main() -> int:
         table, rows_all, index.n_buckets, s), reps=5, warmup=1)
     log(f"[kernel] coarse_score at the full batch "
         f"({rows_all.shape[0] // s} read-strands): {full_ms:.4f} ms")
-    del cases, pipe, dm, table, packed, c, q_ok, lens, both, rows_all, rows
+    # the single-device step's vector of this batch, for phase 8
+    vec_single = dm.step_packed(packed).cpu()
+    del cases, pipe, dm, table, c, q_ok, lens, both, rows
     del lanes, vargs, wargs, tgt_idx, pk, targs
     torch.cuda.empty_cache()
 
@@ -291,7 +433,7 @@ def main() -> int:
     if bad:
         raise RuntimeError(f"{bad} records have a CIGAR whose query length "
                            f"is not the read length")
-    idle = [k for k, n in al_launches.items() if n == 0]
+    idle = [k for k in ALIGN_KERNELS if al_launches[k] == 0]
     if idle:
         raise RuntimeError(f"align path never launched: {idle}")
 
@@ -334,6 +476,21 @@ def main() -> int:
         f"{dp_full_ms:.4f} ms; one whole align sub-batch on the device "
         f"(unpack, windows, DP, run traceback, RLE): {sub_ms:.4f} ms, of "
         f"which windows {win_ms:.4f} ms and DP {dp_full_ms:.4f} ms")
+    del pipe, al, first_sub, qc, qfull, textp, dargs, got, want, full, qpk
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 8. the mesh step and the staged coarse branch ------------------
+    mdev = distributed.initialize(backend="nccl",
+                                  init_method=f"tcp://127.0.0.1:{free_port()}",
+                                  rank=0, world_size=1)
+    try:
+        report += mesh_phase(torch, index, fastq, gt, sam, mdev, rows_all,
+                             packed, vec_single)
+    finally:
+        gc.collect()          # the mesh's groups go before the process group
+        torch.distributed.destroy_process_group()
+
     if "jax" in sys.modules:
         raise RuntimeError("jax was imported by the port")
 

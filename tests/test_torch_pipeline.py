@@ -111,7 +111,7 @@ def _env():
     return env
 
 
-def test_port_maps_without_jax():
+def test_port_maps_without_jax(tmp_path):
     code = """
 import sys
 import numpy as np
@@ -125,12 +125,25 @@ for align in (False, True):
     stats = BucketMapPipeline(index, device="cpu", align=align, batch_size=16,
                               pair_batch=16).map_reads(batch, sys.argv[1])
     assert stats.mapped_locations > 0, (align, stats)
+# a one-rank gloo mesh through the staged coarse branch
+import torch.distributed as dist
+from bucketmap_tpu_torch.parallel import distributed, sharding
+distributed.initialize(backend="gloo", init_method="file://" + sys.argv[2],
+                       rank=0, world_size=1)
+mesh = sharding.make_mesh()
+assert mesh.shape == {"data": 1, "bucket": 1}
+mstats = BucketMapPipeline(index, device="cpu", align=True, batch_size=16,
+                           pair_batch=16, mesh=mesh, coarse_path="staged"
+                           ).map_reads(batch, sys.argv[1])
+del mesh
+dist.destroy_process_group()
+assert mstats.mapped_locations == stats.mapped_locations, (mstats, stats)
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 print("ok", stats.mapped_locations)
 """
-    res = subprocess.run([sys.executable, "-c", code, os.devnull], cwd=REPO,
-                         env=_env(), capture_output=True, text=True,
-                         timeout=300)
+    res = subprocess.run([sys.executable, "-c", code, os.devnull,
+                          str(tmp_path / "store")], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok")
 
