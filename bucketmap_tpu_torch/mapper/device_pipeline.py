@@ -6,8 +6,9 @@ without the remote-link branches. One step takes a batch of packed reads
 for word the JAX step's:
 
   coarse scoring -> locator sampling -> compaction of the valid
-  (read, strand, candidate) lanes by scatter-by-rank -> chunked packed
-  vote -> compaction of the accepted lanes into the packed result.
+  (read, strand, candidate) lanes by scatter-by-rank -> chunked vote on
+  the fine tables' path -> compaction of the accepted lanes into the
+  packed result.
 
 Where the JAX step skips vote chunks whose lanes are all padding with
 lax.cond, this step reads the valid-lane total to the host once per
@@ -35,7 +36,9 @@ from bucketmap_tpu_torch.device import (MASK32, host_tensor, i64_to_i32,
                                         resolve_device, u32_to_i32,
                                         upload_u32)
 from bucketmap_tpu_torch.index.device_build import (build_fine_index_on_device,
-                                                    check_fine_sentinel)
+                                                    build_occupancy_on_device,
+                                                    check_fine_sentinel,
+                                                    packed_fine_applies)
 from bucketmap_tpu_torch.ops.coarse import CoarseMapper, coarse_tables
 from bucketmap_tpu_torch.ops.encoding import unpack_reads
 from bucketmap_tpu_torch.ops.vote import (MAX_OCC, FineLocator,
@@ -51,28 +54,158 @@ def shard_geometry(index: BucketIndex, Db: int) -> tuple[int, int, int]:
     return wr, 32 * wr, 32 * wr * Db
 
 
-def build_tables(index: BucketIndex, device, mesh=None) -> dict:
-    """All device tables of the step: the coarse tables uploaded from the
-    host index, the fine tables built on the device. With a mesh, this
-    rank's bucket shard: its occupancy columns and its npf fine rows."""
+FINE_BUILDS = ("auto", "device", "host")
+OCCUPANCY_BUILDS = ("host", "device")
+# host arrays past the last bucket, as the JAX mesh pads its shards
+# (device_pipeline.py:243-258)
+FILLS = {"fine_packed": 0xFFFFFFFF, "fine_ptab": 0, "fine_low": 0xFFFF,
+         "fine_pos": -1, "buckets_packed": 0, "bucket_lengths": 0}
+
+
+def default_fine_max_gb(device) -> float | None:
+    """The device fine build's budget: half the card's memory on CUDA
+    (the JAX package's 8 GB of a 16 GB v5e, device_pipeline.py:162,
+    scaled to the card), none on the CPU."""
     dev = resolve_device(device)
-    shard = rows = group = None
+    if dev.type != "cuda":
+        return None
+    return torch.cuda.get_device_properties(dev).total_memory / 2 / 2**30
+
+
+def host_fine_arrays(index: BucketIndex) -> dict:
+    """The fine tables a host-built index carries (None where it has none)
+    under tables_from_numpy's names."""
+    return {"fine_packed": index.fine_packed, "fine_ptab": index.fine_ptab,
+            "fine_low": index.fine_low, "fine_pos": index.fine_pos,
+            "buckets_packed": index.buckets_packed,
+            "bucket_lengths": index.bucket_lengths,
+            "search_steps": index.fine_search_steps,
+            "low_bits": index.fine_low_bits}
+
+
+def _host_rows(a, rows, fill) -> np.ndarray:
+    """Rows [r0, r1) of a host table; rows past its end hold `fill`."""
+    if rows is None:
+        return np.asarray(a)
+    r0, r1 = rows
+    out = np.full((r1 - r0,) + a.shape[1:], fill, dtype=a.dtype)
+    hi = min(r1, a.shape[0])
+    if hi > r0:
+        out[:hi - r0] = a[r0:hi]
+    return out
+
+
+def fine_tables_from_numpy(arrays: dict, device, rows=None) -> dict:
+    """Upload the tables of the first vote path that the host `arrays`
+    allow, in the JAX order (ops/vote.py:vote_path): "fine_packed"
+    ((N, lpos) as the host build leaves it, or the device build's tiled
+    (N, Tp, 128)) with "fine_ptab"; else "fine_ptab", "fine_low" and
+    "fine_pos"; else "fine_pos" and "buckets_packed"; else
+    "buckets_packed" and "bucket_lengths" for the scan. rows = (r0, r1)
+    takes one bucket shard's rows, padded with FILLS. A "buckets_packed"
+    given as a device tensor (all rows, int32 words) is used as it is."""
+    dev = resolve_device(device)
+    have = {k for k, v in arrays.items() if v is not None}
+    if "fine_packed" in have:
+        names = ("fine_packed", "fine_ptab")
+    elif "fine_ptab" in have:
+        names = ("fine_ptab", "fine_low", "fine_pos")
+    elif "fine_pos" in have:
+        names = ("fine_pos", "buckets_packed")
+    else:
+        names = ("buckets_packed", "bucket_lengths")
+    out = {"search_steps": int(arrays.get("search_steps") or 0),
+           "low_bits": int(arrays.get("low_bits") or 0)}
+    host = {}
+    for n in names:
+        if isinstance(arrays[n], torch.Tensor):
+            if rows is not None:
+                raise ValueError(f"a device {n} holds every row; a bucket "
+                                 f"shard takes host rows")
+            out[n] = arrays[n]
+        else:
+            host[n] = _host_rows(np.asarray(arrays[n]), rows, FILLS[n])
+    fp = host.get("fine_packed")
+    if fp is not None and fp.ndim == 3:
+        if fp.shape[2] != 128:
+            raise ValueError("a tiled fine_packed must be (N, Tp, 128)")
+        check_fine_sentinel(fp, host["fine_ptab"])
+    for n, a in host.items():
+        if n in ("fine_packed", "buckets_packed"):
+            out[n] = upload_u32(a, dev)
+        else:
+            out[n] = host_tensor(a.astype(
+                np.int64 if n == "bucket_lengths" else np.int32)).to(dev)
+    return out
+
+
+def build_tables(index: BucketIndex, device, mesh=None,
+                 fine_build: str = "auto", fine_max_gb: float | None = None,
+                 occupancy_build: str = "host",
+                 buckets_packed: torch.Tensor | None = None) -> dict:
+    """All device tables of the step. With a mesh, this rank's bucket
+    shard: its occupancy columns and its npf fine rows.
+
+    fine_build picks the fine tables (device_pipeline.py:146-184):
+    "device" builds the tiled packed table on the device and raises where
+    the packed encoding does not apply; "host" uploads the index's host
+    tables (ops/vote.py:vote_path), or none, for the scan; "auto" is
+    "device" where the encoding applies and its 4 bytes per slot fit
+    fine_max_gb (default: default_fine_max_gb), else "host". The JAX
+    package also skips the device build on the CPU and under 64 MiB, to
+    spare uploads over its remote-TPU link; the port has no such link and
+    does not copy those rules.
+
+    occupancy_build: "host" uploads the host table, "device" builds it on
+    the device from the packed sequences (single device only).
+
+    buckets_packed: a device copy of index.buckets_packed (int32 words)
+    that the scan and sorted votes read instead of uploading their own,
+    e.g. the aligner's (single device only)."""
+    if fine_build not in FINE_BUILDS:
+        raise ValueError(f"fine_build must be one of {FINE_BUILDS}, "
+                         f"got {fine_build!r}")
+    if occupancy_build not in OCCUPANCY_BUILDS:
+        raise ValueError(f"occupancy_build must be one of {OCCUPANCY_BUILDS},"
+                         f" got {occupancy_build!r}")
+    dev = resolve_device(device)
+    n = index.n_buckets
+    shard = rows = group = qw = None
     if mesh is not None:
+        if occupancy_build == "device":
+            raise ValueError("occupancy_build='device' builds a single "
+                             "device's table; a mesh uploads its shards")
         wr, npf, _ = shard_geometry(index, mesh.Db)
         shard = (mesh.bi, wr)
         rows = (mesh.bi * npf, (mesh.bi + 1) * npf)
         group = mesh.bucket_group
-    built = build_fine_index_on_device(index, dev, rows=rows, group=group)
-    if built is None:
-        raise NotImplementedError(
-            "the packed fine index does not apply to this configuration "
-            "(needs query_seed <= 15 and 0 <= 2*query_seed - 12 <= 16); "
-            "the other vote paths are ROADMAP queue 1 item 9")
-    fp, pt, steps, low_bits = built
-    tables = coarse_tables(index, dev, shard=shard)
-    tables.update(fine_packed=fp, fine_ptab=pt, search_steps=steps,
-                  low_bits=low_bits,
-                  locator_sample_tab=locator_sample_tab(index, dev))
+    if occupancy_build == "device":
+        qw = build_occupancy_on_device(index, dev)
+        if qw is None:
+            raise ValueError("occupancy_build='device' needs index_seed <= 10")
+    tables = coarse_tables(index, dev, shard=shard, qgram_words=qw)
+    k = index.config.query_seed
+    lb = index.buckets_packed.shape[1] * 16
+    nrows = n if rows is None else rows[1] - rows[0]
+    budget = default_fine_max_gb(dev) if fine_max_gb is None else fine_max_gb
+    fits = budget is None or 4 * nrows * lb <= budget * 2**30
+    if fine_build == "device" or (fine_build == "auto" and fits
+                                  and packed_fine_applies(k, lb)):
+        built = build_fine_index_on_device(index, dev, rows=rows, group=group)
+        if built is None:
+            raise ValueError(
+                f"fine_build='device': the packed fine index does not apply "
+                f"to query_seed {k} over {lb}-base buckets (needs k <= 15, "
+                f"0 <= 2k-12 <= 16 and positions within 32 - (2k-12) bits)")
+        fp, pt, steps, low_bits = built
+        tables.update(fine_packed=fp, fine_ptab=pt, search_steps=steps,
+                      low_bits=low_bits)
+    else:
+        arrays = host_fine_arrays(index)
+        if buckets_packed is not None:
+            arrays["buckets_packed"] = buckets_packed
+        tables.update(fine_tables_from_numpy(arrays, dev, rows))
+    tables["locator_sample_tab"] = locator_sample_tab(index, dev)
     return tables
 
 
@@ -80,41 +213,40 @@ def tables_from_numpy(arrays: dict, device) -> dict:
     """The step's tables from host arrays, e.g. the ones a JAX DeviceMapper
     holds: "qgram_words" (G1, w) uint32, "kmer_to_row" (4^q,) with
     unsampled q-grams already sent to the sentinel row, "dist_tab" uint8,
-    "mapper_sample_tab" and "locator_sample_tab" int32, the tiled
-    "fine_packed" (N, Tp, 128) uint32, "fine_ptab" (N, 4097) int32, and
+    "mapper_sample_tab" and "locator_sample_tab" int32, and the fine
+    tables of any vote path as fine_tables_from_numpy takes them, with
     the ints "search_steps" and "low_bits"."""
     dev = resolve_device(device)
-    fp = np.asarray(arrays["fine_packed"])
-    pt = np.asarray(arrays["fine_ptab"])
-    if fp.ndim != 3 or fp.shape[2] != 128:
-        raise ValueError("fine_packed must be the tiled (N, Tp, 128) table")
-    check_fine_sentinel(fp, pt)
 
     def t(a, dtype):
         return host_tensor(np.asarray(a, dtype)).to(dev)
 
-    return {
+    tables = fine_tables_from_numpy(arrays, dev)
+    tables.update({
         "qgram_words": upload_u32(np.asarray(arrays["qgram_words"]), dev),
         "kmer_to_row": t(arrays["kmer_to_row"], np.int64),
         "dist_tab": t(arrays["dist_tab"], np.uint8),
         "mapper_sample_tab": t(arrays["mapper_sample_tab"], np.int64),
         "locator_sample_tab": t(arrays["locator_sample_tab"], np.int64),
-        "fine_packed": upload_u32(fp, dev),
-        "fine_ptab": t(pt, np.int32),
-        "search_steps": int(arrays["search_steps"]),
-        "low_bits": int(arrays["low_bits"]),
-    }
+    })
+    return tables
 
 
 class DeviceMapper:
     """The batch step on `device`. With a mesh, this rank's shard of the
     mesh step (module docstring); coarse_path picks the coarse branch
-    ("fused" or "staged", ops/coarse.py)."""
+    ("fused" or "staged", ops/coarse.py); fine_build, fine_max_gb,
+    occupancy_build and buckets_packed pick how the tables are made
+    (build_tables) unless `tables` are given. vote_path names the fine
+    tables' vote path ("tiled", "packed", "prefix", "sorted" or "scan")."""
 
     def __init__(self, index: BucketIndex, device, batch_size: int = 8192,
                  pairs_per_read: int = 4, vote_chunk: int = 1024,
                  tables: dict | None = None, mesh=None,
-                 coarse_path: str = "fused"):
+                 coarse_path: str = "fused", fine_build: str = "auto",
+                 fine_max_gb: float | None = None,
+                 occupancy_build: str = "host",
+                 buckets_packed: torch.Tensor | None = None):
         self.device = resolve_device(device)
         self.index = index
         self.cfg = index.config
@@ -122,11 +254,16 @@ class DeviceMapper:
         self.vote_chunk = vote_chunk
         self.mesh = mesh
         if tables is None:
-            tables = build_tables(index, self.device, mesh)
+            tables = build_tables(index, self.device, mesh,
+                                  fine_build=fine_build,
+                                  fine_max_gb=fine_max_gb,
+                                  occupancy_build=occupancy_build,
+                                  buckets_packed=buckets_packed)
         self.tables = tables
         self.coarse = CoarseMapper(index, self.device, tables,
                                    coarse_path=coarse_path)
         self.fine = FineLocator(index, self.device, tables)
+        self.vote_path = self.fine.path
         if mesh is None:
             self.Dd = self.Db = 1
             self._npf = self._n_pad_global = None

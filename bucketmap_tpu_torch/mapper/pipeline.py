@@ -97,25 +97,36 @@ class MapStats:
 
 
 class BucketMapPipeline:
+    """fine_build and fine_max_gb pick the step's fine tables
+    (mapper/device_pipeline.py:build_tables)."""
+
     def __init__(self, index: BucketIndex, *, device, align: bool = False,
                  batch_size: int = 512, pair_batch: int = 256,
                  pairs_per_read: int = 4, mesh=None,
-                 coarse_path: str = "fused"):
+                 coarse_path: str = "fused", fine_build: str = "auto",
+                 fine_max_gb: float | None = None):
         self.index = index
         self.cfg = index.config
         self.align = align
         self.batch_size = batch_size
         dev = resolve_device(device)
+        # rank 0 of a mesh writes the SAM; the other ranks only map
+        self.emits = mesh is None or mesh.rank == 0
+        self.aligner = (BandedAligner(index, dev, pair_batch=pair_batch)
+                        if align and self.emits else None)
+        # the scan and sorted votes read the packed genome too: one device
+        # copy serves both (pipeline.py:126-133), the fine stage reading
+        # the aligner's zero-padded rows unpadded. A mesh's fine copy
+        # holds one bucket shard, so the aligner keeps its own there.
+        genome = (self.aligner.buckets_packed[:, :self.aligner.words]
+                  if self.aligner is not None and mesh is None else None)
         self.device = DeviceMapper(index, dev, batch_size=batch_size,
                                    pairs_per_read=pairs_per_read,
                                    vote_chunk=min(4096, pair_batch, batch_size),
-                                   mesh=mesh, coarse_path=coarse_path)
-        # rank 0 of a mesh writes the SAM; the other ranks only map
-        self.emits = mesh is None or mesh.rank == 0
-        # the aligner holds its own copy of the packed genome: the fine
-        # stage uploads it in slabs and keeps none
-        self.aligner = (BandedAligner(index, dev, pair_batch=pair_batch)
-                        if align and self.emits else None)
+                                   mesh=mesh, coarse_path=coarse_path,
+                                   fine_build=fine_build,
+                                   fine_max_gb=fine_max_gb,
+                                   buckets_packed=genome)
         self._bucket_sam_offset = index.ref_offset_of_bucket()
 
     # ------------------------------------------------------------------
@@ -225,6 +236,30 @@ class BucketMapPipeline:
         stats.reads_with_candidates += int(reads_with_cand.sum())
         stats.num_reads += n
         stats.num_bases += int(batch.lengths.sum())
+
+    def locate_arrays(self, batch: ReadBatch, stats: MapStats | None = None):
+        """Map every read: ((read, bucket, read_offset, votes, is_orig,
+        seg_offset) arrays sorted by (read, bucket, original strand
+        first), stats) (pipeline.py:316-328)."""
+        stats = stats if stats is not None else MapStats()
+        chunks = list(self.locate_chunks(batch, stats))
+        if chunks:
+            out = tuple(np.concatenate([c[i] for c in chunks])
+                        for i in range(6))
+        else:
+            z = np.zeros(0, np.int64)
+            out = (z, z, z, z, np.zeros(0, bool), z)
+        return out, stats
+
+    def locate_batch(self, batch: ReadBatch, stats: MapStats | None = None):
+        """locate_arrays as a list of Locations per read
+        (pipeline.py:330-337)."""
+        (r, bk, off, votes, orig, so), stats = self.locate_arrays(batch, stats)
+        per_read: list[list[Location]] = [[] for _ in range(batch.num_reads)]
+        for i in range(len(r)):
+            per_read[r[i]].append(Location(int(bk[i]), int(off[i]), int(so[i]),
+                                           int(votes[i]), bool(orig[i])))
+        return per_read, stats
 
     def _overflow(self, host) -> bool:
         return (int(host["local_valid"].max()) > self.device.lane_budget
@@ -363,14 +398,8 @@ class BucketMapPipeline:
                 pass
             return
         if self.align:
-            chunks = list(self.locate_chunks(batch, stats))
+            chunk, _ = self.locate_arrays(batch, stats)
             t0 = time.perf_counter()
-            if chunks:
-                chunk = tuple(np.concatenate([c[i] for c in chunks])
-                              for i in range(6))
-            else:
-                z = np.zeros(0, np.int64)
-                chunk = (z, z, z, z, np.zeros(0, bool), z)
             self._emit_locations(writer, batch, chunk, qt, stats)
             stats.output_seconds += time.perf_counter() - t0
             return

@@ -204,11 +204,13 @@ def occupancy_shard(qgram_words: np.ndarray, bi: int, wr: int) -> np.ndarray:
     return out
 
 
-def coarse_tables(index: BucketIndex, device, shard=None) -> dict:
+def coarse_tables(index: BucketIndex, device, shard=None,
+                  qgram_words: torch.Tensor | None = None) -> dict:
     """The coarse stage's device tables, from the host-built index:
     occupancy words (the 1024-word TPU row padding left out; with shard =
-    (bi, wr), bucket shard bi's columns as occupancy_shard cuts them), the
-    FracMinHash row map with unsampled q-grams sent to the all-ones
+    (bi, wr), bucket shard bi's columns as occupancy_shard cuts them;
+    qgram_words, a table already on the device, in place of the upload),
+    the FracMinHash row map with unsampled q-grams sent to the all-ones
     sentinel row, the distinguishability gate table and the mapper's
     sample table."""
     cfg = index.config
@@ -228,11 +230,13 @@ def coarse_tables(index: BucketIndex, device, shard=None) -> dict:
         dist_tab = dist.astype(np.uint8)
     else:
         dist_tab = per_gram.astype(np.uint8)
-    qw = np.asarray(index.qgram_words)
-    if shard is not None:
-        qw = occupancy_shard(qw, *shard)
+    if qgram_words is None:
+        qw = np.asarray(index.qgram_words)
+        if shard is not None:
+            qw = occupancy_shard(qw, *shard)
+        qgram_words = upload_u32(qw, device)
     return {
-        "qgram_words": upload_u32(qw, device),
+        "qgram_words": qgram_words,
         "kmer_to_row": torch.from_numpy(k2r_m.astype(np.int64)).to(device),
         "dist_tab": torch.from_numpy(dist_tab).to(device),
         "mapper_sample_tab": torch.from_numpy(

@@ -29,7 +29,18 @@ Phases, each reported on its own line:
      with each coarse path (word for word the single-device step of
      phase 5), then BucketMapPipeline(mesh=..., coarse_path="staged")
      over all reads: SAM byte for byte phase 4's, the accuracy floors,
-     and the staged kernels launched in place of the fused one.
+     and the staged kernels launched in place of the fused one;
+  9. vote paths and device builds: (a) the occupancy table built on the
+     device equals the host table word for word, timed beside its
+     upload, and a step on it equals phase 5's vector; (b) with no fine
+     tables (vote path "scan") one batch equals phase 5's vector, ms per
+     vote chunk and the device peak, and the map of all reads gives
+     phase 4's SAM byte for byte, tally launched and fine_window not;
+     (c) on a 100 Mbp bench world (the JAX package builds the 2-D
+     packed, prefix and positional tables only on the host, in numpy:
+     minutes and ~17 GB of host memory at 1.7 Gbp) one batch through the
+     tiled, packed, prefix, sorted and scan paths, the five vectors equal
+     word for word, with ms per vote chunk for each.
 Each phase checks the launches of the kernels its path runs. Any failure
 raises and exits non-zero. The last two lines are a JSON object per
 kernel and the run's JSON result.
@@ -235,6 +246,158 @@ def mesh_phase(torch, index, fastq, gt, sam, dev, rows_all, packed,
     return report
 
 
+def vote_paths_phase(torch, index, fastq, gt, sam, dev, packed, vec_single,
+                     candidate_pairs: int) -> None:
+    """Phase 9: the device occupancy build, the scan vote at full scale,
+    and the five vote paths on one batch of a 100 Mbp world."""
+    import dataclasses
+
+    import numpy as np
+
+    from bucketmap_tpu.index.builder import build_fine_index
+    from bucketmap_tpu_torch import kernels, world
+    from bucketmap_tpu_torch.device import upload_u32
+    from bucketmap_tpu_torch.index.device_build import \
+        build_occupancy_on_device
+    from bucketmap_tpu_torch.mapper.device_pipeline import DeviceMapper
+    from bucketmap_tpu_torch.mapper.pipeline import BucketMapPipeline
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # (a) the occupancy table, built on the device and uploaded, in turns
+    host_qw = np.asarray(index.qgram_words)
+    up, up1 = timed(lambda: upload_u32(host_qw, dev))
+    occ, b1 = timed(lambda: build_occupancy_on_device(index, dev))
+    del occ
+    occ, b2 = timed(lambda: build_occupancy_on_device(index, dev))
+    del up
+    up, up2 = timed(lambda: upload_u32(host_qw, dev))
+    equal = torch.equal(occ, up)
+    log(f"[occupancy] {tuple(occ.shape)} words ({occ.numel() * 4 / 1e9:.3f} "
+        f"GB): device build {b1:.4f} s, {b2:.4f} s; upload {up1:.4f} s, "
+        f"{up2:.4f} s; equal to the host table {equal}; card "
+        f"{card_name_and_limit()}")
+    if not equal:
+        raise RuntimeError("the device occupancy table differs from the host "
+                           "table")
+    del occ, up
+    chunk = min(4096, BATCH)
+    dm, init_s = timed(lambda: DeviceMapper(index, dev, batch_size=BATCH,
+                                            vote_chunk=chunk,
+                                            occupancy_build="device"))
+    vec = dm.step_packed(packed).cpu()
+    log(f"[occupancy] step on the device-built table (mapper ready in "
+        f"{init_s:.1f} s): equal to phase 5's vector {torch.equal(vec, vec_single)}")
+    if not torch.equal(vec, vec_single):
+        raise RuntimeError("the step on the device occupancy table differs")
+    del dm
+    torch.cuda.empty_cache()
+
+    # (b) the table-free scan at full scale
+    pipe, init_s = timed(lambda: BucketMapPipeline(
+        index, device=dev, batch_size=BATCH, pair_batch=BATCH,
+        fine_build="host"))
+    dm = pipe.device
+    if dm.vote_path != "scan":
+        raise RuntimeError(f"expected the scan vote path, got {dm.vote_path}")
+    vec = dm.step_packed(packed).cpu()
+    lanes = dm.compact_lanes(packed)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    chunk_ms = median_ms(torch, lambda: dm.fine.vote(*dm.chunk_args(lanes, 0)),
+                         reps=3, warmup=1)
+    chunk_peak = torch.cuda.max_memory_allocated(dev) - base
+    n_chunks = -(-candidate_pairs // dm.vote_chunk)
+    log(f"[scan] pipeline ready in {init_s:.1f} s; one batch: equal to phase "
+        f"5's vector {torch.equal(vec, vec_single)}; {chunk_ms:.4f} ms per "
+        f"{dm.vote_chunk}-lane vote chunk, {chunk_peak / 2**30:.2f} GiB above "
+        f"the tables; phase 4's {candidate_pairs} candidate pairs are ~"
+        f"{n_chunks} chunks, ~{n_chunks * chunk_ms / 1e3:.1f} s of vote")
+    if not torch.equal(vec, vec_single):
+        raise RuntimeError("the scan path's step differs from phase 5's")
+    del lanes
+    sam_scan = os.path.join(HERE, ".bench_cache", "chip_smoke_scan.sam")
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    stats = pipe.map_fastq(fastq, sam_scan)
+    torch.cuda.synchronize()
+    map_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    mapped, correct = world.score_sam(sam_scan, gt, index)
+    same = filecmp.cmp(sam, sam_scan, shallow=False)
+    log(f"[scan] {stats.num_reads} reads in {map_s:.2f} s = "
+        f"{stats.num_reads / map_s:.1f} reads/s; pct_mapped {mapped:.2f} "
+        f"pct_correct_position(+-10) {correct:.2f}; SAM equal to phase 4's "
+        f"{same}; step+decode {stats.fine_seconds:.2f} s; device peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; launches "
+        f"{launches}; card {card_name_and_limit()}")
+    if not same:
+        raise RuntimeError("the scan path's SAM differs from phase 4's")
+    if mapped < MIN_MAPPED or correct < MIN_CORRECT:
+        raise RuntimeError(f"scan accuracy below the floor: mapped "
+                           f"{mapped:.2f}, correct {correct:.2f}")
+    if launches["tally"] == 0 or launches["fine_window"]:
+        raise RuntimeError(f"the scan path launched {launches}")
+    del pipe, dm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the five vote paths on a 100 Mbp world
+    idx, fq100, _, world_s = world.bench_world(
+        os.path.join(HERE, ".bench_cache"), 100, BATCH)
+    t0 = time.perf_counter()
+    build_fine_index(idx, keep_unpacked=True)
+    log(f"[paths] 100 Mbp world, {idx.n_buckets} buckets, ready in "
+        f"{world_s:.1f} s; host fine tables (2-D packed, prefix, positions) "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    fine = ("fine_packed", "fine_ptab", "fine_low", "fine_pos")
+    keep = {"tiled": fine, "packed": fine, "prefix": fine[1:],
+            "sorted": fine[3:], "scan": ()}
+    batch = world.first_reads(fq100, BATCH)
+    rl = idx.config.read_len
+    codes = np.zeros((batch.num_reads, rl), np.uint8)
+    quals = np.zeros((batch.num_reads, rl), np.uint8)
+    width = min(batch.codes.shape[1], rl)
+    codes[:, :width] = batch.codes[:, :width]
+    quals[:, :width] = batch.quals[:, :width]
+    seg_len = np.minimum(batch.lengths, rl).astype(np.int32)
+    vecs = {}
+    for path, kept in keep.items():
+        one = dataclasses.replace(idx, **{n: None for n in fine
+                                          if n not in kept})
+        dm, init_s = timed(lambda: DeviceMapper(
+            one, dev, batch_size=BATCH, vote_chunk=chunk,
+            fine_build="device" if path == "tiled" else "host"))
+        if dm.vote_path != path:
+            raise RuntimeError(f"expected vote path {path}, got {dm.vote_path}")
+        p100 = dm.pack(codes, quals, seg_len)
+        kernels.reset_launches()
+        vecs[path] = dm.step_packed(p100).cpu()
+        launches = dict(kernels.LAUNCHES)
+        lanes = dm.compact_lanes(p100)
+        ms = median_ms(torch, lambda: dm.fine.vote(*dm.chunk_args(lanes, 0)),
+                       reps=5, warmup=1)
+        log(f"[paths] {path}: tables in {init_s:.2f} s; {lanes['n_valid']} "
+            f"lanes; {ms:.4f} ms per {dm.vote_chunk}-lane vote chunk; equal to "
+            f"the tiled vector {torch.equal(vecs[path], vecs['tiled'])}; step "
+            f"launches {launches}")
+        if not torch.equal(vecs[path], vecs["tiled"]):
+            raise RuntimeError(f"the {path} vote path's vector differs")
+        if launches["tally"] == 0 or \
+                bool(launches["fine_window"]) != (path == "tiled"):
+            raise RuntimeError(f"the {path} path launched {launches}")
+        del dm, lanes, p100, one
+        torch.cuda.empty_cache()
+    log(f"[paths] five vote paths equal word for word on "
+        f"{vecs['tiled'].shape[0]} words; card {card_name_and_limit()}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--genome-mbp", type=float, default=1700.0)
@@ -314,6 +477,7 @@ def main() -> int:
         f"launches {launches}")
     if stats.num_reads < args.reads:
         raise RuntimeError(f"mapped {stats.num_reads} of {args.reads} reads")
+    candidate_pairs = stats.candidate_pairs
     if mapped < MIN_MAPPED or correct < MIN_CORRECT:
         raise RuntimeError(f"accuracy below the floor: mapped {mapped:.2f} "
                            f"(>= {MIN_MAPPED}), correct {correct:.2f} "
@@ -490,6 +654,10 @@ def main() -> int:
     finally:
         gc.collect()          # the mesh's groups go before the process group
         torch.distributed.destroy_process_group()
+
+    # ---- 9. vote paths and device builds --------------------------------
+    vote_paths_phase(torch, index, fastq, gt, sam, dev, packed, vec_single,
+                     candidate_pairs)
 
     if "jax" in sys.modules:
         raise RuntimeError("jax was imported by the port")

@@ -92,6 +92,55 @@ def test_align_sam_matches_jax_pipeline(world, monkeypatch, qt):
     assert sum(c == b"*" for c in cigars) < len(cigars) // 10
 
 
+def test_locate_entry_points_match_jax(world):
+    """locate_arrays and locate_batch, the JAX pipeline's other entry
+    points: the same location arrays and per-read Location lists."""
+    from bucketmap_tpu.io.fastq import iter_fastq_batches
+
+    d, index, fastq = world
+    batch = next(iter(iter_fastq_batches(fastq, reads_per_batch=400)))
+    jp = JaxPipeline(index, batch_size=128, pair_batch=64)
+    pipe = BucketMapPipeline(index, device="cpu", batch_size=128,
+                             pair_batch=64)
+    (want, jstats), (got, stats) = (jp.locate_arrays(batch),
+                                    pipe.locate_arrays(batch))
+    assert len(got) == 6 and len(got[0]) > 300
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert (stats.num_reads, stats.candidate_pairs) == \
+        (jstats.num_reads, jstats.candidate_pairs)
+    per_read, _ = pipe.locate_batch(batch)
+    jper_read, _ = jp.locate_batch(batch)
+    assert len(per_read) == batch.num_reads
+    assert [[tuple(vars(x).values()) for x in r] for r in per_read] == \
+        [[tuple(vars(x).values()) for x in r] for r in jper_read]
+
+
+def test_align_shares_the_genome_with_the_fine_stage(world):
+    """On the scan path (no host fine tables) the fine stage reads the
+    aligner's device copy of the packed genome, and the align SAM equals
+    the tiled path's; the tiled path holds no genome copy of its own."""
+    d, index, fastq = world
+    sams = []
+    for fine_build in ("host", "auto"):
+        pipe = BucketMapPipeline(index, device="cpu", align=True,
+                                 batch_size=128, pair_batch=64,
+                                 fine_build=fine_build)
+        fine, al = pipe.device.fine, pipe.aligner
+        if fine_build == "auto":
+            assert pipe.device.vote_path == "tiled"
+            assert fine.buckets_packed is None
+        else:
+            assert pipe.device.vote_path == "scan"
+            assert fine.buckets_packed.untyped_storage().data_ptr() == \
+                al.buckets_packed.untyped_storage().data_ptr()
+            assert fine.buckets_packed.shape == index.buckets_packed.shape
+            assert pipe.device.tables["buckets_packed"] is fine.buckets_packed
+        pipe.map_fastq(fastq, d / f"share_{fine_build}.sam")
+        sams.append((d / f"share_{fine_build}.sam").read_bytes())
+    assert sams[0] == sams[1] and sams[0].count(b"\n") > 300
+
+
 def test_filter_best_locations_matches_jax():
     rng = np.random.default_rng(3)
     for _ in range(200):

@@ -10,7 +10,9 @@ checks, for both coarse paths:
   * the gathered step vector equals the JAX mesh step's, word for word;
   * rank 0's SAM equals the JAX mesh pipeline's byte for byte, with one
     pair per read (on the (1, 4) mesh the lane budget overflows and the
-    split retry runs) and in align mode.
+    split retry runs) and in align mode;
+  * on host fine tables sharded with the JAX fills (the prefix tables, or
+    none for the scan), the step vector equals the JAX mesh step's.
 
 Beside those: the default mesh split against the JAX make_mesh, a rank's
 rows of a batch, and initialize refusing nccl where there is no CUDA.
@@ -29,6 +31,7 @@ import torch.multiprocessing as mp
 
 MESHES = {"2x2": (2, 2), "1x4": (1, 4)}
 PATHS = ("fused", "staged")
+HOST_VOTES = ("prefix", "scan")   # vote paths on host tables, sharded
 B = 16            # step batch, and the align pipeline's batch
 N_READS = 64      # reads of the split-retry pipeline (align: the first 48)
 N_ALIGN = 48
@@ -50,6 +53,20 @@ def _world():
     sim = ShortReadSimulator(cfg, substitution_rate=0.01, seed=12)
     sim.read(genome)
     return cfg, index, sim
+
+
+def _host_index(index, vote):
+    """A copy of the index with host fine tables that make the vote path
+    `vote`: the prefix tables alone, or none (the scan)."""
+    import dataclasses
+
+    from bucketmap_tpu.index.builder import build_fine_index
+
+    idx = dataclasses.replace(index)
+    if vote == "prefix":
+        build_fine_index(idx, keep_unpacked=True)
+        idx.fine_packed = None
+    return idx
 
 
 def _reads(sim, cfg, n):
@@ -141,6 +158,13 @@ def _rank_work(rank, out_dir, data, bucket) -> dict:
             out[f"splits_{kind}_{path}"] = len(splits)
             out[f"aligner_{kind}_{path}"] = pipe.aligner is not None
     out["qgram"] = tables["qgram_words"].numpy()
+    for vote in HOST_VOTES:
+        dm = DeviceMapper(_host_index(index, vote), "cpu", batch_size=B,
+                          pairs_per_read=16, vote_chunk=B, mesh=mesh,
+                          fine_build="host")
+        out[f"vote_path_{vote}"] = dm.vote_path
+        out[f"vec_host_{vote}"] = dm.step(codes[:B], quals[:B],
+                                          lengths[:B]).numpy()
     return out
 
 
@@ -197,12 +221,18 @@ def jax_side(mesh_run):
                           pairs_per_read=ppr, mesh=mesh, align=align
                           ).map_reads(_read_batch(codes, quals, lengths, n),
                                       d / f"jax_{kind}.sam")
-    return jm, vec, shards
+    host_votes = {}
+    for vote in HOST_VOTES:
+        hm = DeviceMapper(_host_index(_world()[1], vote), batch_size=B,
+                          pairs_per_read=16, vote_chunk=B, mesh=mesh)
+        host_votes[vote] = (hm._vote_path, np.asarray(jax.device_get(
+            hm.step(codes[:B], quals[:B], lengths[:B]))))
+    return jm, vec, shards, host_votes
 
 
 def test_mesh_occupancy_shards_match_jax(mesh_run, jax_side):
     data, bucket, _, outs = mesh_run
-    _, _, shards = jax_side
+    _, _, shards, _ = jax_side
     assert sorted(shards) == list(range(bucket))
     for rank, out in enumerate(outs):
         np.testing.assert_array_equal(out["qgram"].view(np.uint32),
@@ -212,7 +242,7 @@ def test_mesh_occupancy_shards_match_jax(mesh_run, jax_side):
 @pytest.mark.parametrize("path", PATHS)
 def test_mesh_step_vector_matches_jax(mesh_run, jax_side, path):
     _, _, _, outs = mesh_run
-    jm, want, _ = jax_side
+    jm, want, _, _ = jax_side
     for rank, out in enumerate(outs):
         np.testing.assert_array_equal(out[f"vec_{path}"], want,
                                       err_msg=f"rank {rank}")
@@ -220,6 +250,20 @@ def test_mesh_step_vector_matches_jax(mesh_run, jax_side, path):
     host = jm.decode_out(want)
     assert len(host["lane_read"]) >= B * 0.8
     assert int(host["local_valid"].max()) <= jm.lane_budget
+
+
+@pytest.mark.parametrize("vote", HOST_VOTES)
+def test_mesh_host_table_votes_match_jax(mesh_run, jax_side, vote):
+    """Host fine tables sharded by bucket range with the JAX fills: the
+    port's mesh takes the JAX mesh's vote path and gives its vector."""
+    _, _, _, outs = mesh_run
+    jpath, want = jax_side[3][vote]
+    assert jpath == vote
+    for rank, out in enumerate(outs):
+        assert str(out[f"vote_path_{vote}"]) == vote
+        np.testing.assert_array_equal(out[f"vec_host_{vote}"], want,
+                                      err_msg=f"rank {rank}")
+    assert want[0] > 0
 
 
 @pytest.mark.parametrize("path", PATHS)
