@@ -3,11 +3,13 @@
   python -m bucketmap_tpu_torch.cli map -i IND -q reads.fastq -o out.sam \\
       [--index-dir DIR] [--batch-size N] [--device cuda|cpu] [params]
 
-Same flags as `bucketmap_tpu.cli map`, plus --device (default cuda);
---align aligns every location (CIGARs, DP-based MAPQ).
+Same flags as the JAX package's `map` command, plus --device (default
+cuda); --align aligns every location (CIGARs, DP-based MAPQ).
 With --device cuda and no usable CUDA device it fails; it maps on the
-CPU only when --device cpu is given. Index artifacts are the JAX
-package's (`bucketmap_tpu.cli index` builds them).
+CPU only when --device cpu is given. Index artifacts are those
+`index/builder.py:save_index` writes, the same files the JAX package's
+`index` command writes, or the reference's .qgram/.bucket_id/.kmers_index
+with -g.
 """
 
 from __future__ import annotations
@@ -17,7 +19,34 @@ import os
 import sys
 import time
 
-from bucketmap_tpu.cli import _add_param_flags
+from bucketmap_tpu_torch.config import MapperConfig
+
+
+def _add_param_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("-k", "--index-seed", type=int, default=9)
+    p.add_argument("-l", "--query-seed", type=int, default=12)
+    p.add_argument("-r", "--read-len", type=int, default=300)
+    p.add_argument("-s", "--mapper-samples", type=int, default=15)
+    p.add_argument("-d", "--distinguishability", type=float, default=0.5)
+    p.add_argument("-b", "--average-base-quality", type=int, default=25)
+    p.add_argument("-e", "--max-error-rate", type=float, default=0.4)
+    p.add_argument("-n", "--max-indel-rate", type=float, default=0.02)
+    p.add_argument("-p", "--locator-samples", type=int, default=10)
+    p.add_argument("-u", "--quality", type=int, default=40)
+    p.add_argument("-f", "--kmer-frac", type=float, default=1.0)
+    p.add_argument("--bucket-len", type=int, default=65536)
+
+
+def _config_from(args) -> MapperConfig:
+    return MapperConfig(
+        bucket_len=args.bucket_len, read_len=args.read_len,
+        index_seed=args.index_seed, query_seed=args.query_seed,
+        mapper_samples=args.mapper_samples,
+        distinguishability=args.distinguishability,
+        average_base_quality=args.average_base_quality,
+        seed_miss_rate=args.max_error_rate, indel_rate=args.max_indel_rate,
+        locator_samples=args.locator_samples, quality_threshold=args.quality,
+        kmer_fraction=args.kmer_frac)
 
 
 def main(argv=None) -> int:
@@ -42,8 +71,7 @@ def main(argv=None) -> int:
 
     import torch
 
-    from bucketmap_tpu.cli import _config_from
-    from bucketmap_tpu.index import builder
+    from bucketmap_tpu_torch.index import builder
     from bucketmap_tpu_torch.mapper.pipeline import BucketMapPipeline
 
     try:

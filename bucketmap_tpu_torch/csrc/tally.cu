@@ -10,19 +10,28 @@
 // once per sample: exact merge while no proposal slot exists yet,
 // +-indel afterwards. A valid proposal adds one vote to every live slot
 // within the tolerance; if none is close it creates slot j*O+o with one
-// vote. The winner is the largest packed key votes<<19 | (2^19-1 -
-// (pos+read_len)), i.e. most votes, then smallest position. Accept when
-// votes >= min_vote and offset >= 1.
+// vote. An invalid proposal changes nothing. The winner is the largest
+// packed key votes<<19 | (2^19-1 - (pos+read_len)), i.e. most votes,
+// then smallest position. Accept when votes >= min_vote and
+// offset >= 1.
 //
-// What bounds it on the H100: the dependency chain of S sequential steps
-// per pair, not memory (each pair reads 2*S int32 once).
+// What bounds it on the H100: the dependency chain of sequential steps
+// per pair, not memory (each pair reads 2*S int32 once): integer
+// operations, the live slots compared at each valid step.
 //
-// Design: one warp per pair. Slot idx lives in lane idx % 32, register
-// idx / 32, so each step is SPL = ceil(S/32) compares per lane and one
-// __any_sync; all state stays in registers, and a warp max-reduction
-// decodes the winner. A 4096-pair chunk gives 4096 warps, enough to keep
-// every SM busy through the serial steps.
+// Design: one warp per pair. The warp loads the pair's S proposals and
+// valid flags once, coalesced: lane l holds proposal l + 32k in register
+// k. A ballot per register gives the valid steps in order; the warp
+// walks only those (invalid steps change no state: no vote, no slot,
+// and the per-sample tolerance depends only on whether a slot was made
+// before the sample began). Each step broadcasts its proposal with a
+// shuffle, so the chain holds no memory operation and its length is the
+// valid count, not S. Slot idx lives in lane idx % 32, register idx / 32
+// (only registers up to the step's own can hold a slot yet); one
+// __any_sync per step decides whether the step makes a slot, and a warp
+// max-reduction decodes the winner. A 4096-pair chunk gives 4096 warps.
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -45,6 +54,16 @@ tally_kernel(const int32_t* __restrict__ prop, const int32_t* __restrict__ valid
   const int32_t* pr = prop + pair * S;
   const int32_t* va = valid + pair * S;
 
+  int props[SPL];
+  unsigned vmask[SPL];
+#pragma unroll
+  for (int k = 0; k < SPL; ++k) {
+    const int idx = k * 32 + lane;
+    const bool in = idx < S;
+    props[k] = in ? pr[idx] : 0;
+    vmask[k] = __ballot_sync(kFull, in && va[idx] != 0);
+  }
+
   int pos[SPL];
   int votes[SPL];
   bool created[SPL];
@@ -54,34 +73,32 @@ tally_kernel(const int32_t* __restrict__ prop, const int32_t* __restrict__ valid
     votes[k] = 0;
     created[k] = false;
   }
+  int first_slot = INT_MAX;  // proposal index of the first slot; warp-uniform
 
-  for (int j = 0; j < p; ++j) {
-    bool any_created = false;
 #pragma unroll
-    for (int k = 0; k < SPL; ++k) any_created |= created[k];
-    const int tol = __any_sync(kFull, any_created) ? indel : 0;
-    for (int o = 0; o < n_occ; ++o) {
-      const int idx = j * n_occ + o;
-      const int pcur = __ldg(pr + idx);
-      const bool val = __ldg(va + idx) != 0;
+  for (int k = 0; k < SPL; ++k) {
+    unsigned m = vmask[k];
+    while (m != 0u) {
+      const int l = __ffs(m) - 1;
+      m &= m - 1u;
+      const int idx = k * 32 + l;
+      const int pcur = __shfl_sync(kFull, props[k], l);
+      // the tolerance of sample idx / O: was a slot made before it began?
+      const int tol = first_slot < idx - idx % n_occ ? indel : 0;
       bool close_any = false;
 #pragma unroll
-      for (int k = 0; k < SPL; ++k) {
-        const int d = pos[k] - pcur;
-        const bool c = created[k] && (d < 0 ? -d : d) <= tol;
+      for (int kk = 0; kk <= k; ++kk) {
+        const int d = pos[kk] - pcur;
+        const bool c = created[kk] && (d < 0 ? -d : d) <= tol;
         close_any |= c;
-        if (c && val) votes[k] += 1;
+        votes[kk] += c ? 1 : 0;
       }
-      const bool any_close = __any_sync(kFull, close_any);
-      if (val && !any_close && lane == (idx & 31)) {
-        const int kk = idx >> 5;
-#pragma unroll
-        for (int k = 0; k < SPL; ++k) {
-          if (k == kk) {
-            pos[k] = pcur;
-            votes[k] = 1;
-            created[k] = true;
-          }
+      if (!__any_sync(kFull, close_any)) {
+        if (first_slot == INT_MAX) first_slot = idx;
+        if (lane == l) {
+          pos[k] = pcur;
+          votes[k] = 1;
+          created[k] = true;
         }
       }
     }

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from bucketmap_tpu.index.builder import BucketIndex
+from bucketmap_tpu_torch.index.builder import BucketIndex
 from bucketmap_tpu_torch.device import i64_to_i32, resolve_device, upload_u32
 from bucketmap_tpu_torch.ops.encoding import kmer_hashes, unpack_2bit
 

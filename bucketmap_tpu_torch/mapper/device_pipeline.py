@@ -30,8 +30,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from bucketmap_tpu.index.builder import BucketIndex
-from bucketmap_tpu.ops.encoding import pack_reads
+from bucketmap_tpu_torch.index.builder import BucketIndex
+from bucketmap_tpu_torch.ops.host_encoding import pack_reads
 from bucketmap_tpu_torch.device import (MASK32, host_tensor, i64_to_i32,
                                         resolve_device, u32_to_i32,
                                         upload_u32)
@@ -535,7 +535,7 @@ class DeviceMapper:
              lengths: np.ndarray) -> torch.Tensor:
         """Host batch -> packed reads on the device (encoding.pack_reads
         layout; the native C packing when available, else numpy)."""
-        from bucketmap_tpu.io import native
+        from bucketmap_tpu_torch.io import native
         packed = native.pack_reads(codes, quals, np.asarray(lengths),
                                    self.cfg.query_seed,
                                    self.cfg.mapper_min_kmer_quality)

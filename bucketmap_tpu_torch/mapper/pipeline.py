@@ -26,10 +26,10 @@ import time
 
 import numpy as np
 
-from bucketmap_tpu.index.builder import BucketIndex
-from bucketmap_tpu.io.fastq import ReadBatch, iter_fastq_batches
-from bucketmap_tpu.io.sam import SamWriter
-from bucketmap_tpu.ops.sampler import sample_deterministic
+from bucketmap_tpu_torch.index.builder import BucketIndex
+from bucketmap_tpu_torch.io.fastq import ReadBatch, iter_fastq_batches
+from bucketmap_tpu_torch.io.sam import SamWriter
+from bucketmap_tpu_torch.ops.sampler import sample_deterministic
 from bucketmap_tpu_torch.device import resolve_device
 from bucketmap_tpu_torch.mapper.device_pipeline import DeviceMapper
 from bucketmap_tpu_torch.ops.align import BandedAligner
@@ -763,7 +763,7 @@ class BucketMapPipeline:
         available, else SamWriter line by line. rec_cigar: (cigar_buf
         bytes, (n+1,) offsets) spans (an empty span is '*'), a list of
         bytes per record, or None for all '*'."""
-        from bucketmap_tpu.io import native
+        from bucketmap_tpu_torch.io import native
 
         if isinstance(rec_cigar, list):
             offs = np.zeros(len(rec_cigar) + 1, np.int64)

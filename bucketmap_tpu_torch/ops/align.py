@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from bucketmap_tpu.index.builder import BucketIndex
+from bucketmap_tpu_torch.index.builder import BucketIndex
 from bucketmap_tpu_torch import kernels
 from bucketmap_tpu_torch.device import (host_tensor, i64_to_i32,
                                         resolve_device, upload_u32)
@@ -515,7 +515,7 @@ class BandedAligner:
         CIGAR bytes on the host (native C when available), handed to
         `emit(s, e, scores, begins, cigar_buf, offs)` for rows [s, e),
         offs (e-s+1,)."""
-        from bucketmap_tpu.io import native
+        from bucketmap_tpu_torch.io import native
 
         use_native = native.available()
 

@@ -25,9 +25,9 @@ import math
 import numpy as np
 import torch
 
-from bucketmap_tpu.index.builder import BucketIndex
-from bucketmap_tpu.ops.encoding import window_quality_sums
-from bucketmap_tpu.ops.sampler import sample_table
+from bucketmap_tpu_torch.index.builder import BucketIndex
+from bucketmap_tpu_torch.ops.host_encoding import window_quality_sums
+from bucketmap_tpu_torch.ops.sampler import sample_table
 from bucketmap_tpu_torch import kernels
 from bucketmap_tpu_torch.device import (MASK32, i64_to_i32, popcount32,
                                         resolve_device, upload_u32)

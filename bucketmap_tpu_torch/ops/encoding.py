@@ -5,15 +5,14 @@ kmer_hashes :66, revcomp_hash :97, unpack_reads :158), with the same
 numeric conventions: base ranks A=0 C=1 G=2 T=3, big-endian base-4
 hashes, 16 bases per packed word LSB-first. Hashes and packed words are
 int64 holding the unsigned 32-bit value, so shifts need no masking. The
-host half (pack_reads, window_quality_sums) is the JAX package's numpy
-code, imported where needed.
+host half (pack_reads, window_quality_sums) is `ops/host_encoding.py`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from bucketmap_tpu.ops.encoding import read_pack_words
+from bucketmap_tpu_torch.ops.host_encoding import read_pack_words
 from bucketmap_tpu_torch.device import MASK32
 
 

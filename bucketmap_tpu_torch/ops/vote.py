@@ -20,8 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from bucketmap_tpu.index.builder import BucketIndex
-from bucketmap_tpu.ops.sampler import sample_table
+from bucketmap_tpu_torch.index.builder import BucketIndex
+from bucketmap_tpu_torch.ops.sampler import sample_table
 from bucketmap_tpu_torch import kernels
 from bucketmap_tpu_torch.device import MASK32, resolve_device, srl
 from bucketmap_tpu_torch.ops.coarse import rank_select

@@ -8,7 +8,8 @@ torch.distributed:
     them, from RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT.
   * ``global_read_batch()`` cuts a batch that every rank holds down to the
     rank's own rows on the data axis.
-  * ``shard_fastq()`` is the JAX module's (it needs no jax).
+  * ``shard_fastq()`` writes one host's round-robin shard of a FASTQ
+    file, as the JAX module's does.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from bucketmap_tpu.parallel.distributed import shard_fastq  # noqa: F401
+from bucketmap_tpu_torch.io.fastq import read_fastq
 
 
 def initialize(backend: str | None = None, init_method: str | None = None,
@@ -66,3 +67,19 @@ def global_read_batch(mesh, codes: np.ndarray, quals: np.ndarray,
                          f"{mesh.Dd} data shards")
     sl = slice(mesh.di * (B // mesh.Dd), (mesh.di + 1) * (B // mesh.Dd))
     return codes[sl], quals[sl], np.asarray(lengths, np.int32)[sl]
+
+
+def shard_fastq(path, out_dir, num_shards: int, shard_id: int) -> str:
+    """Write this host's shard (reads i with i % num_shards == shard_id)
+    to out_dir and return the shard path. Deterministic by read index."""
+    batch = read_fastq(path)
+    sel = np.arange(shard_id, batch.num_reads, num_shards)
+    out = os.path.join(str(out_dir), f"shard_{shard_id}_of_{num_shards}.fastq")
+    ids = batch.ids
+    with open(out, "w") as f:
+        for i in sel:
+            n = int(batch.lengths[i])
+            f.write(f"@{ids[i]}\n"
+                    f"{batch.seq_ascii[i, :n].tobytes().decode()}\n+\n"
+                    f"{batch.qual_ascii[i, :n].tobytes().decode()}\n")
+    return out

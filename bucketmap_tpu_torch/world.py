@@ -15,10 +15,10 @@ import time
 
 import numpy as np
 
-from bucketmap_tpu.config import MapperConfig
-from bucketmap_tpu.index import builder
-from bucketmap_tpu.io.fastq import ReadBatch, iter_fastq_batches
-from bucketmap_tpu.sim.simulator import ShortReadSimulator, repeat_genome
+from bucketmap_tpu_torch.config import MapperConfig
+from bucketmap_tpu_torch.index import builder
+from bucketmap_tpu_torch.io.fastq import ReadBatch, iter_fastq_batches
+from bucketmap_tpu_torch.sim.simulator import ShortReadSimulator, repeat_genome
 
 
 def bench_world(cache_dir: str, genome_mbp: float = 1700.0,

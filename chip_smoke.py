@@ -15,8 +15,11 @@ Phases, each reported on its own line:
      reads in batches of 16384, writing SAM; checks accuracy against the
      ground truth and that every kernel was launched;
   5. map-stage kernels against their plain PyTorch versions on the main
-     path's own inputs from one batch: exact equality, and median times
-     from CUDA events;
+     path's own inputs from one batch: exact equality; each kernel's
+     device time (a spin kernel keeps the device ahead of the host; the
+     L2 flushed before each launch, and warm), its time as one call on
+     an idle device, its bound from this run's inputs and its share of
+     it;
   6. align mode: BucketMapPipeline(..., align=True).map_fastq over the
      same reads, DP sub-batches of 16384 pairs; checks accuracy, CIGAR
      lengths and that the DP kernel and every map-stage kernel launched;
@@ -42,8 +45,9 @@ Phases, each reported on its own line:
      tiled, packed, prefix, sorted and scan paths, the five vectors equal
      word for word, with ms per vote chunk for each.
 Each phase checks the launches of the kernels its path runs. Any failure
-raises and exits non-zero. The last two lines are a JSON object per
-kernel and the run's JSON result.
+raises and exits non-zero, and so does finding jax or the JAX package
+imported. The last two lines are a JSON object per kernel and the run's
+JSON result.
 """
 
 from __future__ import annotations
@@ -67,14 +71,24 @@ DP_PAIRS = 4096               # located pairs in the DP check
 MAP_KERNELS = ("coarse_score", "fine_window", "tally")
 ALIGN_KERNELS = MAP_KERNELS + ("dp_fwd",)
 STAGED_KERNELS = ("presence_gather", "chunk_scan", "fine_window", "tally")
+# bounds: the published H100 SXM HBM3 rate, and the int32 rate of its CUDA
+# cores (132 SMs x 64 INT32 lanes x 1.98 GHz boost clock)
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 16.7e12
+L2_FLUSH_BYTES = 256 << 20    # written before a cold launch: > the 50 MB L2
+DP_OPS_PER_CELL = 15          # int ops of one dp_fwd cell's recurrence
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def median_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median over reps of one call's device time, from CUDA events."""
+def call_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
+    """Median over reps of one call between two CUDA events on an idle
+    device, as the runs before the kernels' redesign timed them. Where the
+    host takes longer to reach the launch (argument checks, allocation,
+    the ctypes call) than the kernel takes to run, this is the host's
+    time."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -89,6 +103,183 @@ def median_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+class DeviceTimer:
+    """A kernel's time on the device alone: a spin kernel keeps the
+    device busy while the host enqueues every timed call between its two
+    CUDA events, so no event pair waits for the host (checked: the spin
+    must outlast the enqueueing, else it runs again, longer). cold=True
+    writes 256 MB before each call, so the call finds nothing of its
+    inputs in the L2, as the main path finds its large tables."""
+
+    def __init__(self, torch, device):
+        self.torch = torch
+        self.flush_buf = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32,
+                                     device=device)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        torch.cuda._sleep(10_000_000)
+        b.record()
+        b.synchronize()
+        self.cycles_per_ms = 10_000_000 / a.elapsed_time(b)
+
+    def ms(self, fn, reps: int = 10, cold: bool = False) -> float:
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(3):
+            if cold:
+                self.flush_buf.fill_(i)
+            fn()
+        lead_ms = 2.0 * (time.perf_counter() - t0) / 3 * 1e3 * reps + 5.0
+        torch.cuda.synchronize()
+        for _ in range(4):
+            starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+            ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+            torch.cuda._sleep(int(lead_ms * self.cycles_per_ms))
+            gate = torch.cuda.Event()
+            gate.record()
+            for i in range(reps):
+                if cold:
+                    self.flush_buf.fill_(i)
+                starts[i].record()
+                fn()
+                ends[i].record()
+            ahead = not gate.query()
+            torch.cuda.synchronize()
+            if ahead:
+                times = sorted(a.elapsed_time(b) for a, b in zip(starts, ends))
+                return times[len(times) // 2]
+            lead_ms *= 4
+        raise RuntimeError("the host could not enqueue ahead of the device")
+
+
+def unique_rows_bytes(torch, table, rows) -> int:
+    """Bytes of the distinct table rows a gather reads, each once."""
+    return torch.unique(rows).numel() * table.shape[1] * 4
+
+
+def coarse_bound(torch, table, rows, s: int):
+    """(bytes, int ops) of the coarse score on these rows: the distinct
+    rows read once, the row indices, the three outputs; an AND per
+    gathered row word, 3 ops per plane per sample word for the
+    ripple-carry count, 4 per plane per output word for max and count."""
+    R, nq = rows.shape
+    w, planes = table.shape[1], s.bit_length()
+    B2 = R // s
+    return (unique_rows_bytes(torch, table, rows) + rows.numel() * 4
+            + B2 * w * 4 * (2 + planes),
+            R * w * (nq - 1 + 3 * planes) + B2 * w * 4 * planes)
+
+
+def presence_bound(torch, table, rows):
+    """(bytes, int ops) of the presence gather: distinct rows once, the
+    indices, one output word per sample word; an AND per row word."""
+    R, nq = rows.shape
+    w = table.shape[1]
+    return (unique_rows_bytes(torch, table, rows) + rows.numel() * 4
+            + R * w * 4, R * w * (nq - 1))
+
+
+def scan_bound(presence, s: int):
+    """(bytes, int ops) of the chunk scan: the presence words once, the
+    three outputs; as coarse_bound for the count and the max."""
+    w, planes = presence.shape[-1], s.bit_length()
+    outer = presence.numel() // (s * w)
+    return (presence.numel() * 4 + outer * w * 4 * (2 + planes),
+            presence.numel() * 3 * planes + outer * w * 4 * planes)
+
+
+def window_bound(torch, ftf, frow, n_occ: int):
+    """(bytes, int ops) of the fine window: each distinct 128-slot table
+    row that a window covers read once, 16 bytes of arguments per window,
+    its O output slots; 4 ops per window slot (mask, compare, range)."""
+    f = frow.to(torch.int64).clamp(0, ftf.shape[0] - 3)
+    sub = torch.unique(f[:, None] + torch.arange(3, device=f.device)).numel()
+    R = frow.numel()
+    return sub * 512 + R * 16 + R * n_occ * 4, R * 384 * 4
+
+
+def tally_bound(torch, prop, valid, p: int, n_occ: int, indel: int):
+    """(bytes, int ops) of the tally: the proposals and flags once, three
+    outputs per pair; 5 ops per (valid step, live slot) comparison and 6
+    per valid step, the live slots counted by running the vote."""
+    P, S = prop.shape
+    pos = torch.zeros_like(prop)
+    created = torch.zeros(prop.shape, dtype=torch.bool, device=prop.device)
+    ok = valid != 0
+    comparisons = torch.zeros((), dtype=torch.int64, device=prop.device)
+    for j in range(p):
+        tol = torch.where(created.any(dim=1, keepdim=True), indel, 0)
+        for o in range(n_occ):
+            idx = j * n_occ + o
+            pcur, v = prop[:, idx:idx + 1], ok[:, idx:idx + 1]
+            comparisons += (created.sum(dim=1, keepdim=True) * v).sum()
+            close = created & ((pos - pcur).abs() <= tol)
+            hit = v & ~close.any(dim=1, keepdim=True)
+            pos[:, idx:idx + 1] = torch.where(hit, pcur, pos[:, idx:idx + 1])
+            created[:, idx:idx + 1] |= hit
+    return (2 * P * S * 4 + 3 * P * 4,
+            5 * int(comparisons) + 6 * int(ok.sum()))
+
+
+def dp_bound(textp, qcodes, band: int):
+    """(bytes, int ops) of the forward DP: the windows, queries, lengths
+    and widths once, one direction byte per cell and the final row;
+    DP_OPS_PER_CELL per cell of the Q x band strip of every pair."""
+    P, W = textp.shape
+    Q = qcodes.shape[1]
+    return (P * W + P * Q + 8 * P + (Q + 1) * P * band + P * band * 4,
+            P * Q * band * DP_OPS_PER_CELL)
+
+
+def bound_of(nbytes: int, nops: int):
+    """(least ms, "bytes" or "operations") on the H100."""
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = nops / INT32_OPS_PER_S * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+def check_kernel(torch, timer, name, src, replaces, kern, plain, shape,
+                 bound, launches: int, main_launches: int) -> dict:
+    """A kernel against its plain version on the same inputs (exact
+    equality), its times and its bound; returns its report entry."""
+    got = kern()
+    torch.cuda.synchronize()
+    want = plain()
+    err = max_abs_err(torch, got, want)
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    cold = timer.ms(kern, cold=True)
+    warm = timer.ms(kern)
+    call = call_ms(torch, kern)
+    plain_ms = call_ms(torch, plain, reps=5, warmup=1)
+    bound_ms, bound_by = bound_of(*bound)
+    log(f"[kernel] {name}: {shape}; equal {equal} max_abs_err {err}; device "
+        f"{cold:.4f} ms with the L2 flushed, {warm:.4f} ms warm; one call on "
+        f"an idle device {call:.4f} ms; plain {plain_ms:.4f} ms; bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({bound[0] / 1e6:.3f} MB, "
+        f"{bound[1] / 1e6:.3f} M int ops), share {bound_ms / cold:.3f}; "
+        f"launches on its path {launches}, on the main path {main_launches}")
+    if not equal:
+        raise RuntimeError(f"{name} disagrees with its plain version")
+    return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": cold,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+def full_size(torch, timer, name, what, fn, bound) -> None:
+    """Log a kernel's device time at a full batch beside its bound."""
+    cold = timer.ms(fn, reps=5, cold=True)
+    bound_ms, bound_by = bound_of(*bound)
+    log(f"[kernel] {name} at {what}: device {cold:.4f} ms with the L2 "
+        f"flushed; bound {bound_ms:.4f} ms by {bound_by} "
+        f"({bound[0] / 1e9:.3f} GB, {bound[1] / 1e9:.3f} G int ops), share "
+        f"{bound_ms / cold:.3f}")
 
 
 def check_cigars(sam_path: str):
@@ -133,12 +324,13 @@ def max_abs_err(torch, got, want) -> int:
                if a.numel() else 0 for a, b in zip(got, want))
 
 
-def mesh_phase(torch, index, fastq, gt, sam, dev, rows_all, packed,
-               vec_single) -> list:
+def mesh_phase(torch, timer, index, fastq, gt, sam, dev, rows_all, packed,
+               vec_single, main_launches: dict) -> list:
     """Phase 8, on the one rank of an initialized nccl group: the staged
     kernels against their plain versions, the mesh step with each coarse
     path against the single-device step, and the staged mesh pipeline
-    against phase 4's SAM. Returns the staged kernels' report entries."""
+    against phase 4's SAM. Returns the staged kernels' report entries,
+    their launches those of the staged mesh pipeline."""
     from bucketmap_tpu_torch import kernels, world
     from bucketmap_tpu_torch.mapper.device_pipeline import DeviceMapper
     from bucketmap_tpu_torch.mapper.pipeline import BucketMapPipeline
@@ -170,37 +362,24 @@ def mesh_phase(torch, index, fastq, gt, sam, dev, rows_all, packed,
          lambda: (presence_gather(table, rows),),
          lambda: (presence_gather_plain(table, rows),),
          f"{rows.shape[0]} samples ({COARSE_ROWS} read-strands x {s}) x "
-         f"{rows.shape[1]} rows x {w} words"),
+         f"{rows.shape[1]} rows x {w} words", presence_bound(torch, table, rows)),
         ("chunk_scan", "bucketmap_tpu_torch/csrc/chunk_scan.cu",
          "bucketmap_tpu/ops/coarse.py:94",
          lambda: chunk_scan(presence, n), lambda: chunk_scan_plain(presence, n),
-         f"{COARSE_ROWS} read-strands x {s} samples x {w} words"),
+         f"{COARSE_ROWS} read-strands x {s} samples x {w} words",
+         scan_bound(presence, s)),
     ]
-    report = []
-    for name, src, replaces, kern, plain, shape in cases:
-        got = kern()
-        torch.cuda.synchronize()
-        want = plain()
-        err = max_abs_err(torch, got, want)
-        equal = all(torch.equal(a, b) for a, b in zip(got, want))
-        ms = median_ms(torch, kern)
-        plain_ms = median_ms(torch, plain, reps=5, warmup=1)
-        log(f"[kernel] {name}: {shape}; equal {equal} max_abs_err {err}; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        if not equal:
-            raise RuntimeError(f"{name} disagrees with its plain version")
-        report.append({"name": name, "route": "cuda", "source": src,
-                       "replaces": replaces, "launches": 0,
-                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
     B2 = rows_all.shape[0] // s
-    gather_ms = median_ms(torch, lambda: presence_gather(table, rows_all),
-                          reps=5, warmup=1)
+    full_size(torch, timer, "presence_gather",
+              f"the full batch ({B2} read-strands)",
+              lambda: presence_gather(table, rows_all),
+              presence_bound(torch, table, rows_all))
     full = presence_gather(table, rows_all).reshape(B2 // 2, 2, s, w)
-    scan_ms = median_ms(torch, lambda: chunk_scan(full, n), reps=5, warmup=1)
-    log(f"[kernel] staged pair at the full batch ({B2} read-strands, "
-        f"presence {full.numel() * 4 / 1e9:.2f} GB): presence_gather "
-        f"{gather_ms:.4f} ms, chunk_scan {scan_ms:.4f} ms")
-    del presence, full, cases
+    full_size(torch, timer, "chunk_scan",
+              f"the full batch ({B2} read-strands, presence "
+              f"{full.numel() * 4 / 1e9:.2f} GB)", lambda: chunk_scan(full, n),
+              scan_bound(full, s))
+    del full
 
     # one batch through the mesh step, each coarse path
     fused = DeviceMapper(index, dev, batch_size=BATCH, vote_chunk=dm.vote_chunk,
@@ -241,8 +420,11 @@ def mesh_phase(torch, index, fastq, gt, sam, dev, rows_all, packed,
     idle = [k for k in STAGED_KERNELS if launches[k] == 0]
     if idle or launches["coarse_score"]:
         raise RuntimeError(f"the staged path launched {launches}")
-    for entry in report:
-        entry["launches"] = launches[entry["name"]]
+    # the staged kernels on the main path's rows, their launches this
+    # pipeline's
+    report = [check_kernel(torch, timer, *case, launches[case[0]],
+                           main_launches[case[0]]) for case in cases]
+    del presence, cases
     return report
 
 
@@ -254,8 +436,8 @@ def vote_paths_phase(torch, index, fastq, gt, sam, dev, packed, vec_single,
 
     import numpy as np
 
-    from bucketmap_tpu.index.builder import build_fine_index
     from bucketmap_tpu_torch import kernels, world
+    from bucketmap_tpu_torch.index.builder import build_fine_index
     from bucketmap_tpu_torch.device import upload_u32
     from bucketmap_tpu_torch.index.device_build import \
         build_occupancy_on_device
@@ -309,7 +491,7 @@ def vote_paths_phase(torch, index, fastq, gt, sam, dev, packed, vec_single,
     lanes = dm.compact_lanes(packed)
     torch.cuda.reset_peak_memory_stats(dev)
     base = torch.cuda.memory_allocated(dev)
-    chunk_ms = median_ms(torch, lambda: dm.fine.vote(*dm.chunk_args(lanes, 0)),
+    chunk_ms = call_ms(torch, lambda: dm.fine.vote(*dm.chunk_args(lanes, 0)),
                          reps=3, warmup=1)
     chunk_peak = torch.cuda.max_memory_allocated(dev) - base
     n_chunks = -(-candidate_pairs // dm.vote_chunk)
@@ -381,7 +563,7 @@ def vote_paths_phase(torch, index, fastq, gt, sam, dev, packed, vec_single,
         vecs[path] = dm.step_packed(p100).cpu()
         launches = dict(kernels.LAUNCHES)
         lanes = dm.compact_lanes(p100)
-        ms = median_ms(torch, lambda: dm.fine.vote(*dm.chunk_args(lanes, 0)),
+        ms = call_ms(torch, lambda: dm.fine.vote(*dm.chunk_args(lanes, 0)),
                        reps=5, warmup=1)
         log(f"[paths] {path}: tables in {init_s:.2f} s; {lanes['n_valid']} "
             f"lanes; {ms:.4f} ms per {dm.vote_chunk}-lane vote chunk; equal to "
@@ -507,41 +689,32 @@ def main() -> int:
     pk = fine_window(*wargs)
     targs = dm.fine.tally_args(pk.reshape(P, p, -1), tgt_idx, vargs[1])
 
+    timer = DeviceTimer(torch, dev)
     cases = [
         ("coarse_score", "bucketmap_tpu_torch/csrc/coarse_score.cu",
          "bucketmap_tpu/ops/coarse.py:256",
          lambda: coarse_score(table, rows, index.n_buckets, s),
          lambda: coarse_score_plain(table, rows, index.n_buckets, s),
-         f"{COARSE_ROWS} read-strands x {s} samples x {table.shape[1]} words"),
+         f"{COARSE_ROWS} read-strands x {s} samples x {table.shape[1]} words",
+         coarse_bound(torch, table, rows, s)),
         ("fine_window", "bucketmap_tpu_torch/csrc/fine_window.cu",
          "bucketmap_tpu/ops/vote.py:54",
          lambda: (fine_window(*wargs),), lambda: (fine_window_plain(*wargs),),
-         f"{wargs[1].shape[0]} windows of one {P}-lane vote chunk"),
+         f"{wargs[1].shape[0]} windows of one {P}-lane vote chunk",
+         window_bound(torch, wargs[0], wargs[1], wargs[5])),
         ("tally", "bucketmap_tpu_torch/csrc/tally.cu",
          "bucketmap_tpu/ops/vote.py:186",
          lambda: tally(*targs), lambda: tally_plain(*targs),
-         f"{P} pairs x {targs[0].shape[1]} proposals"),
+         f"{P} pairs x {targs[0].shape[1]} proposals "
+         f"({int((targs[1] != 0).sum())} valid)",
+         tally_bound(torch, *targs[:5])),
     ]
-    report = []
-    for name, src, replaces, kern, plain, shape in cases:
-        got = kern()
-        torch.cuda.synchronize()
-        want = plain()
-        err = max_abs_err(torch, got, want)
-        equal = all(torch.equal(a, b) for a, b in zip(got, want))
-        ms = median_ms(torch, kern)
-        plain_ms = median_ms(torch, plain, reps=5, warmup=1)
-        log(f"[kernel] {name}: {shape}; equal {equal} max_abs_err {err}; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        if not equal:
-            raise RuntimeError(f"{name} disagrees with its plain version")
-        report.append({"name": name, "route": "cuda", "source": src,
-                       "replaces": replaces, "launches": launches[name],
-                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
-    full_ms = median_ms(torch, lambda: coarse_score(
-        table, rows_all, index.n_buckets, s), reps=5, warmup=1)
-    log(f"[kernel] coarse_score at the full batch "
-        f"({rows_all.shape[0] // s} read-strands): {full_ms:.4f} ms")
+    report = [check_kernel(torch, timer, *case, launches[case[0]],
+                           launches[case[0]]) for case in cases]
+    full_size(torch, timer, "coarse_score",
+              f"the full batch ({rows_all.shape[0] // s} read-strands)",
+              lambda: coarse_score(table, rows_all, index.n_buckets, s),
+              coarse_bound(torch, table, rows_all, s))
     # the single-device step's vector of this batch, for phase 8
     vec_single = dm.step_packed(packed).cpu()
     del cases, pipe, dm, table, c, q_ok, lens, both, rows
@@ -610,37 +783,29 @@ def main() -> int:
     n = DP_PAIRS
     dargs = (textp[:n].contiguous(), qfull[:n].contiguous(),
              qlen[:n].contiguous(), width[:n].contiguous(), band, lo)
-    got = dp_fwd(*dargs)
-    torch.cuda.synchronize()
-    want = dp_fwd_plain(*dargs)
-    err = max_abs_err(torch, got, want)
-    equal = all(torch.equal(a, b) for a, b in zip(got, want))
-    ms = median_ms(torch, lambda: dp_fwd(*dargs))
-    plain_ms = median_ms(torch, lambda: dp_fwd_plain(*dargs), reps=5, warmup=1)
-    log(f"[kernel] dp_fwd: {n} located pairs, Q {Qp}, band {band}, lo {lo}; "
-        f"equal {equal} max_abs_err {err}; kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms")
-    if not equal:
-        raise RuntimeError("dp_fwd disagrees with its plain version")
-    report.append({"name": "dp_fwd", "route": "cuda",
-                   "source": "bucketmap_tpu_torch/csrc/dp_fwd.cu",
-                   "replaces": "bucketmap_tpu/ops/align.py:95",
-                   "launches": al_launches["dp_fwd"], "max_abs_err": err,
-                   "ms": ms, "plain_ms": plain_ms})
+    report.append(check_kernel(
+        torch, timer, "dp_fwd", "bucketmap_tpu_torch/csrc/dp_fwd.cu",
+        "bucketmap_tpu/ops/align.py:95", lambda: dp_fwd(*dargs),
+        lambda: dp_fwd_plain(*dargs),
+        f"{n} located pairs, Q {Qp}, band {band}, lo {lo}",
+        dp_bound(dargs[0], dargs[1], band), al_launches["dp_fwd"],
+        launches["dp_fwd"]))
     full = (textp, qfull, qlen, width, band, lo)
-    dp_full_ms = median_ms(torch, lambda: dp_fwd(*full), reps=5, warmup=1)
-    win_ms = median_ms(torch, lambda: al._text_windows(
+    full_size(torch, timer, "dp_fwd", f"the full sub-batch ({qc.shape[0]} "
+              f"pairs)", lambda: dp_fwd(*full), dp_bound(textp, qfull, band))
+    dp_full_ms = timer.ms(lambda: dp_fwd(*full), reps=5)
+    win_ms = call_ms(torch, lambda: al._text_windows(
         Qp, bids, offs, is_rc, width), reps=5, warmup=1)
     qpk = upload_u32(pack_qcodes(qc), dev)
     run_cap = al.run_cap_per_pair * qc.shape[0]
-    sub_ms = median_ms(torch, lambda: al._align_runs(
+    sub_ms = call_ms(torch, lambda: al._align_runs(
         qpk, qlen, bids, offs, is_rc, width, run_cap=run_cap), reps=5,
         warmup=1)
-    log(f"[kernel] dp_fwd at the full sub-batch ({qc.shape[0]} pairs): "
-        f"{dp_full_ms:.4f} ms; one whole align sub-batch on the device "
-        f"(unpack, windows, DP, run traceback, RLE): {sub_ms:.4f} ms, of "
-        f"which windows {win_ms:.4f} ms and DP {dp_full_ms:.4f} ms")
-    del pipe, al, first_sub, qc, qfull, textp, dargs, got, want, full, qpk
+    log(f"[kernel] one whole align sub-batch ({qc.shape[0]} pairs; unpack, "
+        f"windows, DP, run traceback, RLE), one call on an idle device: "
+        f"{sub_ms:.4f} ms, of which windows {win_ms:.4f} ms; DP on the "
+        f"device {dp_full_ms:.4f} ms warm")
+    del pipe, al, first_sub, qc, qfull, textp, dargs, full, qpk
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -649,8 +814,8 @@ def main() -> int:
                                   init_method=f"tcp://127.0.0.1:{free_port()}",
                                   rank=0, world_size=1)
     try:
-        report += mesh_phase(torch, index, fastq, gt, sam, mdev, rows_all,
-                             packed, vec_single)
+        report += mesh_phase(torch, timer, index, fastq, gt, sam, mdev,
+                             rows_all, packed, vec_single, launches)
     finally:
         gc.collect()          # the mesh's groups go before the process group
         torch.distributed.destroy_process_group()
@@ -659,8 +824,12 @@ def main() -> int:
     vote_paths_phase(torch, index, fastq, gt, sam, dev, packed, vec_single,
                      candidate_pairs)
 
-    if "jax" in sys.modules:
-        raise RuntimeError("jax was imported by the port")
+    foreign = sorted(m for m in sys.modules
+                     if m in ("jax", "bucketmap_tpu") or m.startswith("jax.")
+                     or m.startswith("bucketmap_tpu."))
+    if foreign:
+        raise RuntimeError(f"the port imported the JAX package or jax: "
+                           f"{foreign}")
 
     log(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,7 @@ from bucketmap_tpu.index.builder import build_index
 from bucketmap_tpu.ops import align as jax_align
 from bucketmap_tpu.sim.simulator import random_genome
 from bucketmap_tpu_torch.ops import align
+from test_torch_host import port_index
 
 CFG = MapperConfig(bucket_len=4096, read_len=150, index_seed=6, query_seed=9,
                    mapper_samples=8)
@@ -58,7 +59,7 @@ def test_extract_windows_match_jax(world, wmax):
     ref = jax_align.BandedAligner(index, pair_batch=16)
     want = np.asarray(ref._extract_windows(
         ref.buckets_tiled, jnp.asarray(bids), jnp.asarray(offs), wmax))
-    port = align.BandedAligner(index, "cpu", pair_batch=16)
+    port = align.BandedAligner(port_index(index), "cpu", pair_batch=16)
     got = port._extract_windows(torch.from_numpy(bids),
                                 torch.from_numpy(offs), wmax)
     np.testing.assert_array_equal(got.numpy(), want)
@@ -175,7 +176,8 @@ def _pairs(world, n, seed, garbage=0.0):
 
 def _aligners(index, pair_batch):
     return (jax_align.BandedAligner(index, pair_batch=pair_batch),
-            align.BandedAligner(index, "cpu", pair_batch=pair_batch))
+            align.BandedAligner(port_index(index), "cpu",
+                                pair_batch=pair_batch))
 
 
 def test_aligner_ops_and_cigars_match_jax(world):

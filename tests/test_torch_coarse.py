@@ -19,6 +19,7 @@ from bucketmap_tpu.ops.coarse import (CoarseMapper as JaxCoarse,
 from bucketmap_tpu.sim.simulator import (ShortReadSimulator, random_genome,
                                          repeat_genome)
 from bucketmap_tpu_torch.ops.coarse import CoarseMapper, coarse_score_plain
+from test_torch_host import port_index
 
 
 def _table(rng, G1, w):
@@ -96,7 +97,8 @@ def test_coarse_mapper_matches_jax(name):
     quals[-4:] = 0                      # low-quality reads give up
     lengths[-6] = 5                     # shorter than k: no k-mers at all
     want = JaxCoarse(index).query_batch(codes, quals, lengths)
-    got = CoarseMapper(index, "cpu").query_batch(codes, quals, lengths)
+    got = CoarseMapper(port_index(index), "cpu").query_batch(codes, quals,
+                                                             lengths)
     for g, w, what in zip(got, want, ("cand", "counts", "num_good")):
         np.testing.assert_array_equal(g, np.asarray(w), err_msg=what)
     assert (got[1] > 0).any()

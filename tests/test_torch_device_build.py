@@ -12,6 +12,7 @@ from bucketmap_tpu.index.device_build import \
 from bucketmap_tpu.sim.simulator import random_genome, repeat_genome
 from bucketmap_tpu_torch.index.device_build import (build_fine_index_on_device,
                                                     check_fine_sentinel)
+from test_torch_host import port_index
 
 
 def _index(genome_len=30_000, k=8, repeats=False, seed=3):
@@ -28,8 +29,8 @@ def _index(genome_len=30_000, k=8, repeats=False, seed=3):
 ])
 def test_device_build_matches_jax_and_host(genome_len, k, repeats):
     index = _index(genome_len, k, repeats)
-    fp, pt, steps, low_bits = build_fine_index_on_device(index, "cpu",
-                                                         row_chunk=3)
+    fp, pt, steps, low_bits = build_fine_index_on_device(port_index(index),
+                                                         "cpu", row_chunk=3)
     jfp, jpt, jsteps, jlow = jax_build(index, row_chunk=4)
     np.testing.assert_array_equal(fp.numpy().view(np.uint32), np.asarray(jfp))
     np.testing.assert_array_equal(pt.numpy(), np.asarray(jpt))
@@ -48,12 +49,13 @@ def test_device_build_matches_jax_and_host(genome_len, k, repeats):
 
 
 def test_device_build_gates_unsupported_k():
-    assert build_fine_index_on_device(_index(10_000, k=16), "cpu") is None
+    assert build_fine_index_on_device(port_index(_index(10_000, k=16)),
+                                      "cpu") is None
 
 
 def test_sentinel_guard():
     index = _index(20_000)
-    fp, pt, _, _ = build_fine_index_on_device(index, "cpu")
+    fp, pt, _, _ = build_fine_index_on_device(port_index(index), "cpu")
     fp, pt = fp.numpy().view(np.uint32).copy(), pt.numpy()
     check_fine_sentinel(fp, pt)                  # padding may be 0xFFFFFFFF
     fp[1, 0, 5] = 0xFFFFFFFF                     # a real slot may not

@@ -18,6 +18,7 @@ from bucketmap_tpu.sim.simulator import random_genome, repeat_genome
 from bucketmap_tpu_torch.index import device_build
 from bucketmap_tpu_torch.index.device_build import build_occupancy_on_device
 from bucketmap_tpu_torch.mapper.device_pipeline import DeviceMapper
+from test_torch_host import port_index
 
 
 def _index(frac, genome_len, q=6, repeats=False):
@@ -41,7 +42,7 @@ def test_occupancy_build_matches_host_and_jax(frac, genome_len, groups,
     k2r = np.asarray(index.kmer_to_row)
     assert (k2r < 0).any() == (frac < 1)
     monkeypatch.setattr(device_build, "OCCUPANCY_GROUPS", groups)
-    got = build_occupancy_on_device(index, "cpu")
+    got = build_occupancy_on_device(port_index(index), "cpu")
     assert got.dtype.is_signed and got.shape == index.qgram_words.shape
     words = got.numpy().view(np.uint32)
     np.testing.assert_array_equal(words, index.qgram_words)
@@ -50,7 +51,8 @@ def test_occupancy_build_matches_host_and_jax(frac, genome_len, groups,
 
 
 def test_occupancy_build_out_of_scope():
-    assert build_occupancy_on_device(_index(1.0, 12_000, q=11), "cpu") is None
+    assert build_occupancy_on_device(port_index(_index(1.0, 12_000, q=11)),
+                                     "cpu") is None
 
 
 def test_step_on_device_occupancy_matches_jax():
@@ -61,15 +63,16 @@ def test_step_on_device_occupancy_matches_jax():
     from bucketmap_tpu.mapper.device_pipeline import DeviceMapper as JaxMapper
     want = np.asarray(jax.device_get(
         JaxMapper(index, batch_size=32, vote_chunk=32).step(*batch)))
-    dm = DeviceMapper(index, "cpu", batch_size=32, vote_chunk=32,
+    tindex = port_index(index)
+    dm = DeviceMapper(tindex, "cpu", batch_size=32, vote_chunk=32,
                       occupancy_build="device")
     np.testing.assert_array_equal(
         dm.tables["qgram_words"].numpy().view(np.uint32), index.qgram_words)
     np.testing.assert_array_equal(dm.step(*batch).numpy(), want)
     from bucketmap_tpu_torch.parallel.sharding import Mesh
     with pytest.raises(ValueError, match="single"):
-        DeviceMapper(index, "cpu", batch_size=32, occupancy_build="device",
+        DeviceMapper(tindex, "cpu", batch_size=32, occupancy_build="device",
                      mesh=Mesh(1, 1, 0, 0, None, None, None))
-    q11 = _index(1.0, 12_000, q=11)
+    q11 = port_index(_index(1.0, 12_000, q=11))
     with pytest.raises(ValueError, match="index_seed <= 10"):
         DeviceMapper(q11, "cpu", batch_size=32, occupancy_build="device")

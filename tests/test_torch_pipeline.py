@@ -1,6 +1,8 @@
 """The torch port end to end: SAM bytes equal to the JAX pipeline's,
-align-free and in align mode, the package running with no jax loaded,
-and the `map` command line."""
+align-free and in align mode, the package running with neither jax nor
+the JAX package loaded, and the `map` command line. The JAX index
+reaches the port through index_from_arrays, or as the files the JAX
+package's save_index writes."""
 
 import os
 import subprocess
@@ -20,6 +22,7 @@ from bucketmap_tpu.sim.simulator import ShortReadSimulator, repeat_genome
 from bucketmap_tpu_torch import cli
 from bucketmap_tpu_torch.mapper.pipeline import (BucketMapPipeline, Location,
                                                  filter_best_locations)
+from test_torch_host import port_index
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = MapperConfig(bucket_len=4096, read_len=150, index_seed=6, query_seed=9,
@@ -50,7 +53,7 @@ def test_sam_matches_jax_pipeline(world, monkeypatch, ppr):
     monkeypatch.setenv("BMTPU_DEVICE_FINE", "1")
     JaxPipeline(index, batch_size=128, pair_batch=64,
                 pairs_per_read=ppr).map_fastq(fastq, d / f"jax{ppr}.sam")
-    pipe = BucketMapPipeline(index, device="cpu", batch_size=128,
+    pipe = BucketMapPipeline(port_index(index), device="cpu", batch_size=128,
                              pair_batch=64, pairs_per_read=ppr)
     splits = []
     split = pipe._locate_split
@@ -74,8 +77,8 @@ def test_align_sam_matches_jax_pipeline(world, monkeypatch, qt):
     tag = "d" if qt is None else qt
     JaxPipeline(index, align=True, batch_size=128, pair_batch=64).map_fastq(
         fastq, d / f"jax_align{tag}.sam", quality_threshold=qt)
-    pipe = BucketMapPipeline(index, device="cpu", align=True, batch_size=128,
-                             pair_batch=64)
+    pipe = BucketMapPipeline(port_index(index), device="cpu", align=True,
+                             batch_size=128, pair_batch=64)
     long_calls = []
     emit = pipe._align_long_emit
     monkeypatch.setattr(pipe, "_align_long_emit",
@@ -96,20 +99,23 @@ def test_locate_entry_points_match_jax(world):
     """locate_arrays and locate_batch, the JAX pipeline's other entry
     points: the same location arrays and per-read Location lists."""
     from bucketmap_tpu.io.fastq import iter_fastq_batches
+    from bucketmap_tpu_torch.io import fastq as port_fastq
 
     d, index, fastq = world
     batch = next(iter(iter_fastq_batches(fastq, reads_per_batch=400)))
+    tbatch = next(iter(port_fastq.iter_fastq_batches(fastq,
+                                                     reads_per_batch=400)))
     jp = JaxPipeline(index, batch_size=128, pair_batch=64)
-    pipe = BucketMapPipeline(index, device="cpu", batch_size=128,
+    pipe = BucketMapPipeline(port_index(index), device="cpu", batch_size=128,
                              pair_batch=64)
     (want, jstats), (got, stats) = (jp.locate_arrays(batch),
-                                    pipe.locate_arrays(batch))
+                                    pipe.locate_arrays(tbatch))
     assert len(got) == 6 and len(got[0]) > 300
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
     assert (stats.num_reads, stats.candidate_pairs) == \
         (jstats.num_reads, jstats.candidate_pairs)
-    per_read, _ = pipe.locate_batch(batch)
+    per_read, _ = pipe.locate_batch(tbatch)
     jper_read, _ = jp.locate_batch(batch)
     assert len(per_read) == batch.num_reads
     assert [[tuple(vars(x).values()) for x in r] for r in per_read] == \
@@ -123,7 +129,7 @@ def test_align_shares_the_genome_with_the_fine_stage(world):
     d, index, fastq = world
     sams = []
     for fine_build in ("host", "auto"):
-        pipe = BucketMapPipeline(index, device="cpu", align=True,
+        pipe = BucketMapPipeline(port_index(index), device="cpu", align=True,
                                  batch_size=128, pair_batch=64,
                                  fine_build=fine_build)
         fine, al = pipe.device.fine, pipe.aligner
@@ -161,15 +167,23 @@ def _env():
 
 
 def test_port_maps_without_jax(tmp_path):
+    """The tiny world made by the port's own config, builder and
+    simulator, mapped align-free, aligned and on a one-rank gloo mesh,
+    with neither jax nor the JAX package ever imported."""
     code = """
 import sys
-import numpy as np
-from __graft_entry__ import _batch, _tiny_world
-from bucketmap_tpu.io.fastq import ReadBatch
+from bucketmap_tpu_torch.config import MapperConfig
+from bucketmap_tpu_torch.index.builder import build_index
+from bucketmap_tpu_torch.io.fastq import read_fastq
 from bucketmap_tpu_torch.mapper.pipeline import BucketMapPipeline
-cfg, index, sim = _tiny_world()
-codes, quals, lengths = _batch(sim, cfg, 16)
-batch = ReadBatch.from_arrays([str(i) for i in range(16)], codes, quals, lengths)
+from bucketmap_tpu_torch.sim.simulator import ShortReadSimulator, random_genome
+cfg = MapperConfig(bucket_len=1024, read_len=100, index_seed=5, query_seed=8,
+                   mapper_samples=6, locator_samples=5, max_candidate_buckets=4)
+genome = random_genome(40_000, seed=7, n_refs=2)
+index = build_index(genome, cfg)
+sim = ShortReadSimulator(cfg, substitution_rate=0.01, seed=8)
+sim.read(genome)
+batch = read_fastq(sim.generate(sys.argv[3], "r", 16)["fastq"])
 for align in (False, True):
     stats = BucketMapPipeline(index, device="cpu", align=align, batch_size=16,
                               pair_batch=16).map_reads(batch, sys.argv[1])
@@ -187,12 +201,15 @@ mstats = BucketMapPipeline(index, device="cpu", align=True, batch_size=16,
 del mesh
 dist.destroy_process_group()
 assert mstats.mapped_locations == stats.mapped_locations, (mstats, stats)
-assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+bad = sorted(m for m in sys.modules if m in ("jax", "bucketmap_tpu")
+             or m.startswith(("jax.", "bucketmap_tpu.")))
+assert not bad, bad
 print("ok", stats.mapped_locations)
 """
     res = subprocess.run([sys.executable, "-c", code, os.devnull,
-                          str(tmp_path / "store")], cwd=REPO, env=_env(),
-                         capture_output=True, text=True, timeout=300)
+                          str(tmp_path / "store"), str(tmp_path)], cwd=REPO,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok")
 
@@ -208,7 +225,7 @@ def test_cli_map_on_cpu(world):
         text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert "Total mapped locations" in res.stdout
-    BucketMapPipeline(index, device="cpu", batch_size=128,
+    BucketMapPipeline(port_index(index), device="cpu", batch_size=128,
                       pair_batch=128).map_fastq(fastq, d / "direct.sam")
     assert out.read_bytes() == (d / "direct.sam").read_bytes()
 
@@ -224,8 +241,9 @@ def test_cli_map_align_on_cpu(world):
         capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert "Total mapped locations" in res.stdout
-    BucketMapPipeline(index, device="cpu", align=True, batch_size=128,
-                      pair_batch=128).map_fastq(fastq, d / "direct_align.sam")
+    BucketMapPipeline(port_index(index), device="cpu", align=True,
+                      batch_size=128, pair_batch=128).map_fastq(
+                          fastq, d / "direct_align.sam")
     assert out.read_bytes() == (d / "direct_align.sam").read_bytes()
     assert b"M\t" in out.read_bytes()
 
@@ -242,4 +260,4 @@ def test_cli_refuses_missing_cuda_and_align(world, capsys):
             assert cli.main(base + extra) == 1
             assert "CUDA is not available" in capsys.readouterr().err
         with pytest.raises(RuntimeError, match="cuda"):
-            BucketMapPipeline(index, device="cuda", align=True)
+            BucketMapPipeline(port_index(index), device="cuda", align=True)

@@ -16,8 +16,10 @@ checks, for both coarse paths:
 
 Beside those: the default mesh split against the JAX make_mesh, a rank's
 rows of a batch, and initialize refusing nccl where there is no CUDA.
-The children import no jax (each asserts it); this module imports jax
-only inside test bodies and the JAX-side fixture.
+The children make the world with the port's own config, builder and
+simulator and import neither jax nor the JAX package (each asserts it);
+this module imports those only inside test bodies and the JAX-side
+fixture, which makes the same world with the JAX package.
 """
 
 import os
@@ -38,12 +40,20 @@ N_ALIGN = 48
 JOIN_S = 120
 
 
-def _world():
-    """tests/test_sharded_step.py:_world(fine=False): the port builds its
-    own fine tables."""
-    from bucketmap_tpu.config import MapperConfig
-    from bucketmap_tpu.index.builder import build_index
-    from bucketmap_tpu.sim.simulator import ShortReadSimulator, random_genome
+def _world(port: bool):
+    """tests/test_sharded_step.py:_world(fine=False), made by the port's
+    modules or the JAX package's (the same index and reads:
+    tests/test_torch_host.py); the port builds its own fine tables."""
+    if port:
+        from bucketmap_tpu_torch.config import MapperConfig
+        from bucketmap_tpu_torch.index.builder import build_index
+        from bucketmap_tpu_torch.sim.simulator import (ShortReadSimulator,
+                                                       random_genome)
+    else:
+        from bucketmap_tpu.config import MapperConfig
+        from bucketmap_tpu.index.builder import build_index
+        from bucketmap_tpu.sim.simulator import (ShortReadSimulator,
+                                                 random_genome)
 
     cfg = MapperConfig(bucket_len=1024, read_len=100, index_seed=7,
                        query_seed=10, mapper_samples=8, locator_samples=6,
@@ -55,12 +65,15 @@ def _world():
     return cfg, index, sim
 
 
-def _host_index(index, vote):
+def _host_index(index, vote, port: bool):
     """A copy of the index with host fine tables that make the vote path
     `vote`: the prefix tables alone, or none (the scan)."""
     import dataclasses
 
-    from bucketmap_tpu.index.builder import build_fine_index
+    if port:
+        from bucketmap_tpu_torch.index.builder import build_fine_index
+    else:
+        from bucketmap_tpu.index.builder import build_fine_index
 
     idx = dataclasses.replace(index)
     if vote == "prefix":
@@ -81,8 +94,11 @@ def _reads(sim, cfg, n):
     return codes, quals, lengths
 
 
-def _read_batch(codes, quals, lengths, n):
-    from bucketmap_tpu.io.fastq import ReadBatch
+def _read_batch(codes, quals, lengths, n, port: bool):
+    if port:
+        from bucketmap_tpu_torch.io.fastq import ReadBatch
+    else:
+        from bucketmap_tpu.io.fastq import ReadBatch
     return ReadBatch.from_arrays([str(i) for i in range(n)], codes[:n],
                                  quals[:n], lengths[:n])
 
@@ -109,7 +125,9 @@ def _rank_main(rank, world, store, out_dir, data, bucket):
                            rank=rank, world_size=world)
     try:
         out = _rank_work(rank, out_dir, data, bucket)
-        assert "jax" not in sys.modules, [m for m in sys.modules if "jax" in m]
+        bad = [m for m in sys.modules if m in ("jax", "bucketmap_tpu")
+               or m.startswith(("jax.", "bucketmap_tpu."))]
+        assert not bad, bad
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
         # rank 0 aligns alone: leave the group together, not while a peer
         # still works
@@ -130,7 +148,7 @@ def _rank_work(rank, out_dir, data, bucket) -> dict:
 
     mesh = sharding.make_mesh(data, bucket)
     assert (mesh.di, mesh.bi) == divmod(rank, bucket)
-    cfg, index, sim = _world()
+    cfg, index, sim = _world(port=True)
     codes, quals, lengths = _reads(sim, cfg, N_READS)
     out, tables = {}, None
     for path in PATHS:
@@ -154,12 +172,14 @@ def _rank_work(rank, out_dir, data, bucket) -> dict:
             split = pipe._locate_split
             pipe._locate_split = lambda *a: splits.append(1) or split(*a)
             sam = os.path.join(out_dir, f"{kind}_{path}.sam")
-            pipe.map_reads(_read_batch(codes, quals, lengths, n), sam)
+            pipe.map_reads(_read_batch(codes, quals, lengths, n, port=True),
+                           sam)
             out[f"splits_{kind}_{path}"] = len(splits)
             out[f"aligner_{kind}_{path}"] = pipe.aligner is not None
     out["qgram"] = tables["qgram_words"].numpy()
     for vote in HOST_VOTES:
-        dm = DeviceMapper(_host_index(index, vote), "cpu", batch_size=B,
+        dm = DeviceMapper(_host_index(index, vote, port=True), "cpu",
+                          batch_size=B,
                           pairs_per_read=16, vote_chunk=B, mesh=mesh,
                           fine_build="host")
         out[f"vote_path_{vote}"] = dm.vote_path
@@ -203,7 +223,7 @@ def jax_side(mesh_run):
     from bucketmap_tpu.parallel.sharding import make_mesh
 
     data, bucket, d, _ = mesh_run
-    cfg, index, sim = _world()
+    cfg, index, sim = _world(port=False)
     build_fine_index(index)
     codes, quals, lengths = _reads(sim, cfg, N_READS)
     mesh = make_mesh(4, data=data, bucket=bucket)
@@ -219,11 +239,13 @@ def jax_side(mesh_run):
         bs, ppr, align, n = _pipe_args(kind)
         BucketMapPipeline(index, batch_size=bs, pair_batch=B,
                           pairs_per_read=ppr, mesh=mesh, align=align
-                          ).map_reads(_read_batch(codes, quals, lengths, n),
+                          ).map_reads(_read_batch(codes, quals, lengths, n,
+                                                  port=False),
                                       d / f"jax_{kind}.sam")
     host_votes = {}
     for vote in HOST_VOTES:
-        hm = DeviceMapper(_host_index(_world()[1], vote), batch_size=B,
+        hm = DeviceMapper(_host_index(_world(port=False)[1], vote,
+                                      port=False), batch_size=B,
                           pairs_per_read=16, vote_chunk=B, mesh=mesh)
         host_votes[vote] = (hm._vote_path, np.asarray(jax.device_get(
             hm.step(codes[:B], quals[:B], lengths[:B]))))

@@ -28,6 +28,7 @@ from bucketmap_tpu_torch.mapper.device_pipeline import DeviceMapper
 from bucketmap_tpu_torch.ops.coarse import (CoarseMapper, chunk_scan,
                                             chunk_scan_plain, presence_gather,
                                             presence_gather_plain)
+from test_torch_host import port_index
 
 
 def _t(a: np.ndarray) -> torch.Tensor:
@@ -109,8 +110,9 @@ def test_staged_query_matches_fused_and_jax(repeats):
     codes, quals, lengths = _batch(sim, cfg, 48)
     quals[-3:] = 0                     # low-quality reads give up
     want = JaxCoarse(index).query_batch(codes, quals, lengths)
-    fused = CoarseMapper(index, "cpu").query_batch(codes, quals, lengths)
-    staged = CoarseMapper(index, "cpu", coarse_path="staged").query_batch(
+    tindex = port_index(index)
+    fused = CoarseMapper(tindex, "cpu").query_batch(codes, quals, lengths)
+    staged = CoarseMapper(tindex, "cpu", coarse_path="staged").query_batch(
         codes, quals, lengths)
     for s, f, w, what in zip(staged, fused, want,
                              ("cand", "counts", "num_good")):
@@ -118,7 +120,7 @@ def test_staged_query_matches_fused_and_jax(repeats):
         np.testing.assert_array_equal(s, np.asarray(w), err_msg=what)
     assert (staged[1] > 0).any()
     with pytest.raises(ValueError, match="coarse_path"):
-        CoarseMapper(index, "cpu", coarse_path="unfused")
+        CoarseMapper(tindex, "cpu", coarse_path="unfused")
 
 
 @pytest.mark.parametrize("ppr", [4, 1])
@@ -132,8 +134,8 @@ def test_staged_step_vector_matches_jax(monkeypatch, ppr):
     lengths[-3:] = 0
     jm = JaxMapper(index, batch_size=B, pairs_per_read=ppr, vote_chunk=32)
     want = np.asarray(jax.device_get(jm.step(codes, quals, lengths)))
-    dm = DeviceMapper(index, "cpu", batch_size=B, pairs_per_read=ppr,
-                      vote_chunk=32, coarse_path="staged")
+    dm = DeviceMapper(port_index(index), "cpu", batch_size=B,
+                      pairs_per_read=ppr, vote_chunk=32, coarse_path="staged")
     got = dm.step(codes, quals, lengths).numpy()
     np.testing.assert_array_equal(got, want)
     assert want[0] > 0

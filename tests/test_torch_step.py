@@ -3,7 +3,8 @@ word: the packed result vector (header, per-read candidate counts and
 the accepted lanes, garbage slots included) on the same batch. The JAX
 step takes its tiled packed vote path (BMTPU_DEVICE_FINE=1); the port
 gets its tables once from its own device build and once carried over
-from the JAX step's tables (tables_from_numpy)."""
+from the JAX step's tables (tables_from_numpy). The index reaches the
+port through index_from_arrays."""
 
 import numpy as np
 import jax
@@ -13,6 +14,7 @@ from __graft_entry__ import _batch, _tiny_world
 from bucketmap_tpu.mapper.device_pipeline import DeviceMapper as JaxMapper
 from bucketmap_tpu_torch.mapper.device_pipeline import (DeviceMapper,
                                                         tables_from_numpy)
+from test_torch_host import port_index
 
 B = 64
 STEP = dict(batch_size=B, vote_chunk=32)
@@ -49,7 +51,7 @@ def world(request):
             assert jm._vote_path == "packed" and jm.fine.fine_packed.ndim == 3
             out[ppr] = (jm, np.asarray(jax.device_get(
                 jm.step(codes, quals, lengths))))
-        yield index, (codes, quals, lengths), out
+        yield port_index(index), (codes, quals, lengths), out
     finally:
         mp.undo()
 

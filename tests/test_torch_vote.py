@@ -24,6 +24,7 @@ from bucketmap_tpu.sim.simulator import ShortReadSimulator, random_genome
 from bucketmap_tpu_torch.index.device_build import build_fine_index_on_device
 from bucketmap_tpu_torch.ops.vote import (FineLocator, fine_window_plain,
                                           locator_sample_tab, tally_plain)
+from test_torch_host import port_index
 
 
 def _proposals(rng, P, p, O, tandem: bool):
@@ -182,12 +183,13 @@ def test_tiled_vote_matches_jax(kind):
     sh, si = jfl.prepare(codes, quals, seg_len)
     want = jfl.vote(bucket_ids, is_rc, sh, si, seg_len)
 
-    fp, pt, steps, low_bits = build_fine_index_on_device(index, "cpu")
+    tindex = port_index(index)
+    fp, pt, steps, low_bits = build_fine_index_on_device(tindex, "cpu")
     assert steps == host.fine_search_steps
-    tfl = FineLocator(index, "cpu", {
+    tfl = FineLocator(tindex, "cpu", {
         "fine_packed": fp, "fine_ptab": pt, "search_steps": steps,
         "low_bits": low_bits,
-        "locator_sample_tab": locator_sample_tab(index, "cpu")})
+        "locator_sample_tab": locator_sample_tab(tindex, "cpu")})
     qual_ok = window_quality_sums(quals, cfg.query_seed) \
         >= cfg.mapper_min_kmer_quality
     tsh, tsi = tfl.prepare(torch.from_numpy(codes), torch.from_numpy(qual_ok),

@@ -40,6 +40,7 @@ from bucketmap_tpu_torch.mapper.device_pipeline import (DeviceMapper,
                                                         host_fine_arrays)
 from bucketmap_tpu_torch.mapper.pipeline import BucketMapPipeline
 from bucketmap_tpu_torch.ops.vote import FineLocator, locator_sample_tab
+from test_torch_host import port_index
 
 # the host tables each path keeps: a path takes the first it finds
 KEEP = {
@@ -130,10 +131,11 @@ def _vote_case(kind, k):
     cfg = index.config
     qual_ok = window_quality_sums(quals, cfg.query_seed) \
         >= cfg.mapper_min_kmer_quality
-    port = FineLocator(index, "cpu", {
+    tindex = port_index(index)
+    port = FineLocator(tindex, "cpu", {
         "buckets_packed": torch.zeros(1, 1, dtype=torch.int32),
         "bucket_lengths": torch.zeros(1, dtype=torch.int64),
-        "locator_sample_tab": locator_sample_tab(index, "cpu")})
+        "locator_sample_tab": locator_sample_tab(tindex, "cpu")})
     tsh, tsi = port.prepare(torch.from_numpy(codes),
                             torch.from_numpy(qual_ok),
                             torch.from_numpy(seg_len))
@@ -141,7 +143,7 @@ def _vote_case(kind, k):
     np.testing.assert_array_equal(tsi.numpy(), si)
     targs = (torch.from_numpy(bucket_ids), torch.from_numpy(is_rc), tsh, tsi,
              torch.from_numpy(seg_len))
-    return index, targs, want
+    return tindex, targs, want
 
 
 @pytest.mark.parametrize("kind,k,path", [
@@ -195,7 +197,7 @@ def test_step_vector_per_path_matches_jax(step_worlds, k, path):
     jm = JaxMapper(idx, **STEP)
     assert jm._vote_path == path
     want = np.asarray(jax.device_get(jm.step(*batch)))
-    dm = DeviceMapper(idx, "cpu", fine_build="host", **STEP)
+    dm = DeviceMapper(port_index(idx), "cpu", fine_build="host", **STEP)
     assert dm.vote_path == jm._vote_path
     got = dm.step(*batch).numpy()
     np.testing.assert_array_equal(got, want)
@@ -229,7 +231,8 @@ def test_pipeline_sam_matches_jax_at_long_k(long_k_world, k, path):
     jp = JaxPipeline(index, batch_size=64, pair_batch=32)
     assert jp.device._vote_path == path
     jp.map_fastq(fastq, d / f"jax{k}.sam")
-    pipe = BucketMapPipeline(index, device="cpu", batch_size=64, pair_batch=32)
+    pipe = BucketMapPipeline(port_index(index), device="cpu", batch_size=64,
+                             pair_batch=32)
     assert pipe.device.vote_path == path
     stats = pipe.map_fastq(fastq, d / f"torch{k}.sam")
     assert (d / f"torch{k}.sam").read_bytes() == (d / f"jax{k}.sam").read_bytes()
@@ -237,7 +240,7 @@ def test_pipeline_sam_matches_jax_at_long_k(long_k_world, k, path):
 
 
 def test_fine_budget_and_forced_device_build():
-    cfg, index, _ = _tiny_world()
+    index = port_index(_tiny_world()[1])
     lb = index.buckets_packed.shape[1] * 16
     gb = 4 * index.n_buckets * lb / 2**30
     assert DeviceMapper(index, "cpu", batch_size=8).vote_path == "tiled"
@@ -254,7 +257,7 @@ def test_fine_budget_and_forced_device_build():
     for bad in (dict(fine_build="jax"), dict(occupancy_build="auto")):
         with pytest.raises(ValueError, match="must be one of"):
             DeviceMapper(index, "cpu", batch_size=8, **bad)
-    _, index16, _ = _tiny_world(query_seed=16)
+    index16 = port_index(_tiny_world(query_seed=16)[1])
     with pytest.raises(ValueError, match="does not apply"):
         DeviceMapper(index16, "cpu", batch_size=8, fine_build="device")
     assert DeviceMapper(index16, "cpu", batch_size=8).vote_path == "scan"
