@@ -12,164 +12,61 @@
 // test; 0xFFFFFFFF elsewhere. Slots inside one prefix segment are sorted
 // by their low bits, so the matches are consecutive.
 //
-// What bounds it on the H100: bytes. One 4096-pair vote chunk reads
-// 40,960 windows of 1.5 KB (~63 MB) scattered over a ~7 GB table that
-// the main path finds cold in L2, with almost no arithmetic per byte.
+// What bounds it on the H100: latency of scattered 1.5 KB reads. One
+// 4096-pair vote chunk reads 40,960 windows (~61 MB) from a ~7 GB table,
+// with almost no arithmetic per byte.
 //
-// Design: the TPU kernel's DMA ring (vote.py:105-160) on Hopper's copy
-// engine. Persistent blocks, a few per SM, each walk a contiguous range
-// of rows. A block first stages its rows' (frow, lo, hi, low) into
-// shared memory with coalesced loads (the counterpart of scalar
-// prefetch), so no window fetch waits on a dependent argument load.
-// Each warp then keeps a ring of kDepth windows in flight: lane 0 issues
-// one 1-D bulk copy (cp.async.bulk, 1536 B, 16-byte aligned) per window
-// into a ring slot, completing on that slot's mbarrier. The warp waits
-// on the slot, scans its 384 slots in shared memory in 12 conflict-free
-// steps, takes the first match with a shuffle min-reduction, and lanes
-// 0..O-1 emit their slot; then the slot is refilled with the window
-// kDepth rows ahead.
+// Design: one warp per row. The 32 lanes sweep the 384 slots in 12
+// coalesced 128-byte steps, keep the smallest matching index, and a
+// shuffle min-reduction gives the first match; lanes 0..O-1 then emit
+// their slot, re-read from L1. Many warps in flight hide the latency.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kDepth = 4;        // windows in flight per warp
-constexpr int kTile = 256;       // rows whose arguments a block stages at once
-constexpr int kBlocksPerSm = 4;  // resident blocks per SM (shared memory)
+constexpr int kThreads = 256;
 constexpr int kW = 3;
 constexpr int kWin = kW * 128;
-constexpr unsigned kWinBytes = kWin * 4;
-
-struct Smem {
-  uint32_t win[kWarps][kDepth][kWin];  // 48 KB ring, 16-byte aligned slots
-  uint64_t bar[kWarps][kDepth];
-  int32_t frow[kTile];
-  int32_t lo[kTile];
-  int32_t hi[kTile];
-  int32_t low[kTile];
-};
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-// One window: the slot's barrier expects kWinBytes, then the bulk copy
-// delivers them.
-__device__ __forceinline__ void fetch(uint32_t* dst, const uint32_t* src,
-                                      uint64_t* bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(kWinBytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(kWinBytes), "r"(smem_addr(bar))
-      : "memory");
-}
 
 __global__ void __launch_bounds__(kThreads)
 fine_window_kernel(const uint32_t* __restrict__ ftf, int64_t nt,
                    const int32_t* __restrict__ frow,
                    const int32_t* __restrict__ lo_rel,
                    const int32_t* __restrict__ hi_rel,
-                   const int32_t* __restrict__ low, int64_t n_rows,
-                   int64_t rows_per_block, int n_occ, uint32_t low_mask,
-                   uint32_t* __restrict__ out) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem& s = *reinterpret_cast<Smem*>(smem_raw);
-  const int warp = threadIdx.x >> 5;
+                   const int32_t* __restrict__ low, int64_t n_rows, int n_occ,
+                   uint32_t low_mask, uint32_t* __restrict__ out) {
+  const int64_t r =
+      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
-  if (threadIdx.x < kWarps * kDepth)
-    bar_init(&s.bar[threadIdx.x / kDepth][threadIdx.x % kDepth], 1);
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  __syncthreads();
+  if (r >= n_rows) return;  // uniform across the warp
+  int64_t f = frow[r];
+  f = f < 0 ? 0 : (f > nt - kW ? nt - kW : f);
+  const uint32_t* win = ftf + f * 128;
+  const int lo = lo_rel[r];
+  const int hi = hi_rel[r];
+  const uint32_t want = static_cast<uint32_t>(low[r]);
 
-  const int64_t r_begin = static_cast<int64_t>(blockIdx.x) * rows_per_block;
-  const int64_t r_end =
-      r_begin + rows_per_block < n_rows ? r_begin + rows_per_block : n_rows;
-  uint32_t it = 0;  // this warp's rows so far: ring slot it % kDepth
-  for (int64_t t0 = r_begin; t0 < r_end; t0 += kTile) {
-    const int n = static_cast<int>(r_end - t0 < kTile ? r_end - t0 : kTile);
-    __syncthreads();  // the previous tile's arguments are no longer read
-    for (int i = threadIdx.x; i < n; i += kThreads) {
-      int64_t f = frow[t0 + i];
-      f = f < 0 ? 0 : (f > nt - kW ? nt - kW : f);
-      s.frow[i] = static_cast<int32_t>(f);
-      s.lo[i] = lo_rel[t0 + i];
-      s.hi[i] = hi_rel[t0 + i];
-      s.low[i] = low[t0 + i];
-    }
-    __syncthreads();
-    // this warp's rows of the tile: warp, warp + kWarps, ...
-    const int mine = n > warp ? (n - warp + kWarps - 1) / kWarps : 0;
-    if (lane == 0) {
-      for (int d = 0; d < kDepth && d < mine; ++d) {
-        const int i = warp + d * kWarps;
-        const uint32_t slot = (it + d) % kDepth;
-        fetch(s.win[warp][slot], ftf + static_cast<int64_t>(s.frow[i]) * 128,
-              &s.bar[warp][slot]);
-      }
-    }
-    for (int j = 0; j < mine; ++j, ++it) {
-      const int i = warp + j * kWarps;
-      const uint32_t slot = it % kDepth;
-      bar_wait(&s.bar[warp][slot], (it / kDepth) & 1u);
-      const uint32_t* win = s.win[warp][slot];
-      const int lo = s.lo[i];
-      const int hi = s.hi[i];
-      const uint32_t want = static_cast<uint32_t>(s.low[i]);
-      int first = kWin;
+  int first = kWin;
 #pragma unroll
-      for (int t = 0; t < kWin / 32; ++t) {
-        const int k = t * 32 + lane;
-        const uint32_t v = win[k];
-        if (k >= lo && k < hi && (v & low_mask) == want && k < first) first = k;
-      }
+  for (int t = 0; t < kWin / 32; ++t) {
+    const int i = t * 32 + lane;
+    const uint32_t v = __ldg(win + i);
+    if (i >= lo && i < hi && (v & low_mask) == want && i < first) first = i;
+  }
 #pragma unroll
-      for (int d = 16; d > 0; d >>= 1)
-        first = min(first, __shfl_xor_sync(0xFFFFFFFFu, first, d));
-      if (lane < n_occ) {
-        const int k = first + lane;
-        uint32_t v = 0xFFFFFFFFu;
-        if (k < kWin && k >= lo && k < hi) {
-          const uint32_t x = win[k];
-          if ((x & low_mask) == want) v = x;
-        }
-        out[(t0 + i) * n_occ + lane] = v;
-      }
-      __syncwarp();  // every lane is done with the slot before it refills
-      if (lane == 0 && j + kDepth < mine) {
-        const int nxt = warp + (j + kDepth) * kWarps;
-        // order this warp's reads of the slot before the async-proxy write
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        fetch(s.win[warp][slot],
-              ftf + static_cast<int64_t>(s.frow[nxt]) * 128,
-              &s.bar[warp][slot]);
-      }
+  for (int d = 16; d > 0; d >>= 1)
+    first = min(first, __shfl_xor_sync(0xFFFFFFFFu, first, d));
+
+  if (lane < n_occ) {
+    const int i = first + lane;
+    uint32_t v = 0xFFFFFFFFu;
+    if (i < kWin && i >= lo && i < hi) {
+      const uint32_t x = __ldg(win + i);
+      if ((x & low_mask) == want) v = x;
     }
+    out[r * n_occ + lane] = v;
   }
 }
 
@@ -177,7 +74,7 @@ fine_window_kernel(const uint32_t* __restrict__ ftf, int64_t nt,
 
 // ftf (NT, 128) u32 slot table; frow/lo_rel/hi_rel/low (R,) i32; out
 // (R, O) u32. Returns cudaGetLastError() after the launch (or an
-// argument or device-query error).
+// argument error).
 extern "C" int bm_fine_window(const void* ftf, int64_t nt, const void* frow,
                               const void* lo_rel, const void* hi_rel,
                               const void* low, int64_t n_rows, int n_occ,
@@ -185,32 +82,16 @@ extern "C" int bm_fine_window(const void* ftf, int64_t nt, const void* frow,
   if (nt < kW || n_occ < 1 || n_occ > 32 || low_bits < 0 || low_bits > 16 ||
       n_rows < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (reinterpret_cast<uintptr_t>(ftf) % 16 != 0)
-    return static_cast<int>(cudaErrorMisalignedAddress);
   if (n_rows > 0) {
-    int dev = 0, sms = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(fine_window_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(sizeof(Smem)));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    // enough blocks to fill every SM, each with at least a tile's worth
-    // of rows per warp-ring when the rows allow
-    int64_t blocks = static_cast<int64_t>(sms) * kBlocksPerSm;
-    const int64_t by_rows = (n_rows + kWarps * kDepth - 1) / (kWarps * kDepth);
-    if (by_rows < blocks) blocks = by_rows;
-    const int64_t per_block = (n_rows + blocks - 1) / blocks;
-    blocks = (n_rows + per_block - 1) / per_block;
-    fine_window_kernel<<<static_cast<unsigned>(blocks), kThreads, sizeof(Smem),
+    const int64_t warps_per_block = kThreads / 32;
+    const int64_t blocks = (n_rows + warps_per_block - 1) / warps_per_block;
+    if (blocks > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+    fine_window_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint32_t*>(ftf), nt,
         static_cast<const int32_t*>(frow), static_cast<const int32_t*>(lo_rel),
         static_cast<const int32_t*>(hi_rel), static_cast<const int32_t*>(low),
-        n_rows, per_block, n_occ, (1u << low_bits) - 1u,
-        static_cast<uint32_t*>(out));
+        n_rows, n_occ, (1u << low_bits) - 1u, static_cast<uint32_t*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }

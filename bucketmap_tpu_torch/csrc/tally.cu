@@ -15,9 +15,10 @@
 // then smallest position. Accept when votes >= min_vote and
 // offset >= 1.
 //
-// What bounds it on the H100: the dependency chain of sequential steps
-// per pair, not memory (each pair reads 2*S int32 once): integer
-// operations, the live slots compared at each valid step.
+// What bounds it on the H100: latency. Its bytes (2*S int32 per pair,
+// read once) and operations (the live slots compared at each valid
+// step) take under a microsecond for a chunk; the time is the longest
+// pair's chain of valid steps, each a shuffle and a warp vote.
 //
 // Design: one warp per pair. The warp loads the pair's S proposals and
 // valid flags once, coalesced: lane l holds proposal l + 32k in register
@@ -55,12 +56,14 @@ tally_kernel(const int32_t* __restrict__ prop, const int32_t* __restrict__ valid
   const int32_t* va = valid + pair * S;
 
   int props[SPL];
+  int sample[SPL];  // idx / O, off the chain
   unsigned vmask[SPL];
 #pragma unroll
   for (int k = 0; k < SPL; ++k) {
     const int idx = k * 32 + lane;
     const bool in = idx < S;
     props[k] = in ? pr[idx] : 0;
+    sample[k] = idx / n_occ;
     vmask[k] = __ballot_sync(kFull, in && va[idx] != 0);
   }
 
@@ -73,7 +76,7 @@ tally_kernel(const int32_t* __restrict__ prop, const int32_t* __restrict__ valid
     votes[k] = 0;
     created[k] = false;
   }
-  int first_slot = INT_MAX;  // proposal index of the first slot; warp-uniform
+  int first_sample = INT_MAX;  // sample of the first slot; warp-uniform
 
 #pragma unroll
   for (int k = 0; k < SPL; ++k) {
@@ -81,10 +84,10 @@ tally_kernel(const int32_t* __restrict__ prop, const int32_t* __restrict__ valid
     while (m != 0u) {
       const int l = __ffs(m) - 1;
       m &= m - 1u;
-      const int idx = k * 32 + l;
       const int pcur = __shfl_sync(kFull, props[k], l);
-      // the tolerance of sample idx / O: was a slot made before it began?
-      const int tol = first_slot < idx - idx % n_occ ? indel : 0;
+      const int smp = __shfl_sync(kFull, sample[k], l);
+      // the tolerance of this sample: was a slot made before it began?
+      const int tol = first_sample < smp ? indel : 0;
       bool close_any = false;
 #pragma unroll
       for (int kk = 0; kk <= k; ++kk) {
@@ -94,7 +97,7 @@ tally_kernel(const int32_t* __restrict__ prop, const int32_t* __restrict__ valid
         votes[kk] += c ? 1 : 0;
       }
       if (!__any_sync(kFull, close_any)) {
-        if (first_slot == INT_MAX) first_slot = idx;
+        if (first_sample == INT_MAX) first_sample = smp;
         if (lane == l) {
           pos[k] = pcur;
           votes[k] = 1;

@@ -1,13 +1,14 @@
 """Offline index construction.
 
+The port's copy of `bucketmap_tpu/index/builder.py`, without the JAX
+package's slab upload and memmap staging for its remote device link,
+and without its BMTPU_HOST_BUILD_NATIVE switch: the native host library
+is used wherever it builds, else the numpy path. The on-disk artifact is
+the same, so one saved index serves both packages; `index_from_arrays`
+carries an index held in memory across.
+
 Produces the three logical tables of the reference index
-(bucket_indexer.h:76-127) in a device-friendly layout. The port's copy of
-`bucketmap_tpu/index/builder.py`, without the JAX package's slab upload
-and memmap staging for its remote device link, and without its
-BMTPU_HOST_BUILD_NATIVE switch: the native host library is used
-wherever it builds, else the numpy path. The on-disk artifact is the
-same, so one saved index serves both packages; `index_from_arrays`
-carries an index held in memory across:
+(bucket_indexer.h:76-127) in a device-friendly layout:
 
   * q-gram occupancy bit-matrix: uint32[G+1, W] words (W = ceil(N/32));
     bit b of word w = bucket 32w+b present. Row G is an all-ones

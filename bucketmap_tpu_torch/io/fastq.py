@@ -1,10 +1,10 @@
 """Host-side FASTQ reading into fixed-shape batch arrays.
 
-The port's copy of `bucketmap_tpu/io/fastq.py`. The device pipeline needs static shapes: reads are encoded into
-(num_reads, max_len) uint8 code/quality-rank matrices plus a length
-vector. Parsing is vectorized numpy (newline scan + fancy indexing) so
-the host input pipeline is not the bottleneck; a C++ fast path can slot
-in behind the same interface later.
+The port's copy of `bucketmap_tpu/io/fastq.py`. The device pipeline
+needs static shapes: reads are encoded into (num_reads, max_len) uint8
+code/quality-rank matrices plus a length vector. Parsing is the native
+host library's where it builds, else vectorized numpy (newline scan +
+fancy indexing), so the host input pipeline is not the bottleneck.
 
 Quality follows phred94: rank = ASCII - 33 (utils.h:192-204).
 """
@@ -159,9 +159,8 @@ def iter_fastq_batches(path: str | os.PathLike,
     The full-file path materializes 4 dense (n, L) matrices plus the
     whole byte buffer — ~2 GB for 1M x 300bp — before mapping even
     starts; the reference holds ~0.87 GB TOTAL (benchmark/README.md:168).
-    Streaming parse + map + emit per chunk is the TPU build's memory
-    story: peak host residency is one chunk being mapped plus one being
-    written.
+    Streaming parse + map + emit per chunk is the memory story: peak
+    host residency is one chunk being mapped plus one being written.
 
     Record boundaries: a FASTQ record is exactly 4 lines, so the cut
     point after k complete records is the byte after the 4k-th newline —

@@ -7,8 +7,9 @@ Phases, each reported on its own line:
   1. environment: the card (nvidia-smi name and power limit), torch and
      CUDA versions, whether nvcc and triton are present; exits non-zero
      without a CUDA device;
-  2. build: the four CUDA kernels from bucketmap_tpu_torch/csrc, one
-     nvcc for sm_90a per source, all started together;
+  2. build: the six CUDA kernels from bucketmap_tpu_torch/csrc, one
+     nvcc for sm_90a per source, all started together, and the C++ host
+     library from csrc/host with g++;
   3. world: the bench world (bench.py's seeded repeat genome, index and
      simulated 300 bp reads), cached under .bench_cache/;
   4. main path: BucketMapPipeline(..., device="cuda").map_fastq over all
@@ -24,8 +25,8 @@ Phases, each reported on its own line:
      same reads, DP sub-batches of 16384 pairs; checks accuracy, CIGAR
      lengths and that the DP kernel and every map-stage kernel launched;
   7. the DP kernel against its plain version on the first 4096 located
-     pairs of phase 6 (exact), its time alone at the full 16384-pair
-     sub-batch, and the device time of one whole align sub-batch;
+     pairs of phase 6 (exact), its device time and bound at the full
+     16384-pair sub-batch, and one whole align sub-batch as one call;
   8. the mesh step on torch.distributed (nccl, one rank, mesh (1, 1)):
      the staged coarse branch's two kernels against their plain versions
      on phase 5's rows (exact, times), one batch through the mesh step
@@ -621,6 +622,13 @@ def main() -> int:
         f"{kernels.BUILD_INFO['path']} in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {kernels.BUILD_INFO['seconds']:.2f} s, sm_90a); ptxas: "
         f"{'; '.join(sorted(set(regs)))}")
+    from bucketmap_tpu_torch.io import native
+    t0 = time.perf_counter()
+    if not native.available():
+        raise RuntimeError("the C++ host library (bucketmap_tpu_torch/csrc/"
+                           "host) did not build")
+    log(f"[build] C++ host library (g++) built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s")
 
     # ---- 3. world --------------------------------------------------------
     index, fastq, gt, world_s = world.bench_world(

@@ -12,12 +12,15 @@ libraries must give the same outputs, equal to the plain versions. Each
 kernel is timed on the device (chip_smoke.DeviceTimer) in turns: the
 other tree, this tree, this tree, the other tree. Controlled variants of
 the window rows show what sets the window kernel's pace: the chunk's own
-rows with the L2 flushed and warm, the same rows sorted by table row,
-and every row on one window; the tally runs on the chunk's flags and with
-every proposal valid. Beside them: the host's time per call of this
-tree's wrappers, and one call between two events on an idle device, as
-the runs before the redesign timed the kernels. The last line of the
-output is one JSON object.
+rows with the L2 flushed and warm, the same rows sorted by table row (no
+scatter), and the first 4096 windows repeated (6 MB, held in the L2);
+beside them, a library gather of the same table rows
+(torch.nn.functional.embedding_bag, three rows per window, the table
+read as float32) times the access pattern without the kernel. The tally
+runs on the chunk's flags and with every proposal valid. Last, the
+host's time per call of this tree's wrappers, and one call between two
+events on an idle device, as the runs before the redesign timed the
+kernels. The last line of the output is one JSON object.
 """
 
 from __future__ import annotations
@@ -124,12 +127,26 @@ def main() -> int:
         "chunk": wargs,
         "sorted": (ftf, *(t[order].contiguous() for t in wargs[1:5]),
                    *wargs[5:]),
-        "one_window": (ftf, torch.full_like(frow, int(frow[0])), *wargs[2:]),
+        "l2_resident": (ftf, frow[:4096].repeat(frow.shape[0] // 4096 + 1)
+                        [:frow.shape[0]].contiguous(), *wargs[2:]),
     }
     all_valid = torch.ones_like(targs[1])
     tally_cases = {"chunk": targs,
                    "all_valid": (targs[0], all_valid, *targs[2:])}
     result = {"card": card, "windows": int(frow.shape[0]), "pairs": P}
+    f3 = (frow.to(torch.int64).clamp(0, ftf.shape[0] - 3)[:, None]
+          + torch.arange(3, device=dev)).reshape(-1)
+    table_f32 = ftf.view(torch.float32)
+    bags = torch.arange(0, f3.shape[0], 3, device=dev)
+
+    def gather():
+        return torch.nn.functional.embedding_bag(f3, table_f32, bags,
+                                                 mode="sum")
+    result["library_gather"] = {
+        "cold": timer.ms(gather, cold=True), "warm": timer.ms(gather)}
+    log(f"[gather] embedding_bag of the chunk's {f3.shape[0]} table rows: "
+        f"device {result['library_gather']['cold']:.4f} ms with the L2 "
+        f"flushed, {result['library_gather']['warm']:.4f} ms warm")
     for kname, fn_of, cases, plain in (
             ("fine_window", window_fn, window_cases, fine_window_plain),
             ("tally", tally_fn, tally_cases, tally_plain)):
