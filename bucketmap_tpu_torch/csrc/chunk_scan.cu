@@ -21,8 +21,9 @@
 // Design: one thread per (read-strand, word column), 128 threads along
 // the columns of one read-strand per block, so each of the s loads and
 // every store is a coalesced sweep along a row. The counters stay in
-// registers (at most 5 planes, s <= 31). The outputs keep the width w:
-// the TPU kernel's 128-word tile padding is left out.
+// registers: the plane count is a template parameter, 1..8 (s <= 255),
+// picked from n_planes at the launch. The outputs keep the width w: the
+// TPU kernel's 128-word tile padding is left out.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -30,7 +31,6 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kMaxPlanes = 5;       // s <= 31
 
 __device__ __forceinline__ uint32_t valid_word_mask(int64_t colbase,
                                                     int32_t bound) {
@@ -40,29 +40,28 @@ __device__ __forceinline__ uint32_t valid_word_mask(int64_t colbase,
   return (1u << rem) - 1u;
 }
 
+template <int NP>
 __global__ void __launch_bounds__(kThreads)
 chunk_scan_kernel(const uint32_t* __restrict__ presence, int s, int64_t w,
-                  int n_planes, int32_t bound, int32_t* __restrict__ cm,
+                  int32_t bound, int32_t* __restrict__ cm,
                   int32_t* __restrict__ cc, uint32_t* __restrict__ planes) {
   const int64_t r = blockIdx.x;
   const int64_t col = static_cast<int64_t>(blockIdx.y) * kThreads + threadIdx.x;
   if (col >= w) return;
 
-  uint32_t pl[kMaxPlanes];
+  uint32_t pl[NP];
 #pragma unroll
-  for (int j = 0; j < kMaxPlanes; ++j) pl[j] = 0u;
+  for (int j = 0; j < NP; ++j) pl[j] = 0u;
 
   const uint32_t* row = presence + r * s * w + col;
 #pragma unroll 4
   for (int i = 0; i < s; ++i) {
     uint32_t carry = __ldg(row + static_cast<int64_t>(i) * w);
 #pragma unroll
-    for (int j = 0; j < kMaxPlanes; ++j) {
-      if (j < n_planes) {
-        const uint32_t t = pl[j] & carry;
-        pl[j] ^= carry;
-        carry = t;
-      }
+    for (int j = 0; j < NP; ++j) {
+      const uint32_t t = pl[j] & carry;
+      pl[j] ^= carry;
+      carry = t;
     }
   }
 
@@ -72,21 +71,30 @@ chunk_scan_kernel(const uint32_t* __restrict__ presence, int s, int64_t w,
   uint32_t cand = vmask;
   int m = 0;
 #pragma unroll
-  for (int j = kMaxPlanes - 1; j >= 0; --j) {
-    if (j < n_planes) {
-      const uint32_t t = cand & pl[j];
-      const int nz = t != 0u;
-      if (nz) cand = t;
-      m = m * 2 + nz;
-    }
+  for (int j = NP - 1; j >= 0; --j) {
+    const uint32_t t = cand & pl[j];
+    const int nz = t != 0u;
+    if (nz) cand = t;
+    m = m * 2 + nz;
   }
   const int64_t o = r * w + col;
   cm[o] = vmask == 0u ? -1 : m;
   cc[o] = vmask == 0u ? 32 : __popc(cand);
 #pragma unroll
-  for (int j = 0; j < kMaxPlanes; ++j)
-    if (j < n_planes) planes[(r * n_planes + j) * w + col] = pl[j];
+  for (int j = 0; j < NP; ++j) planes[(r * NP + j) * w + col] = pl[j];
 }
+
+template <int NP>
+void launch(const dim3& grid, cudaStream_t stream, const void* presence,
+            int s, int64_t w, int32_t bound, void* cm, void* cc,
+            void* planes) {
+  chunk_scan_kernel<NP><<<grid, kThreads, 0, stream>>>(
+      static_cast<const uint32_t*>(presence), s, w, bound,
+      static_cast<int32_t*>(cm), static_cast<int32_t*>(cc),
+      static_cast<uint32_t*>(planes));
+}
+
+int bit_length(int s) { return 32 - __builtin_clz(static_cast<unsigned>(s)); }
 
 }  // namespace
 
@@ -96,17 +104,23 @@ chunk_scan_kernel(const uint32_t* __restrict__ presence, int s, int64_t w,
 extern "C" int bm_chunk_scan(const void* presence, int64_t b2, int s,
                              int64_t w, int n_planes, int32_t bound, void* cm,
                              void* cc, void* planes, void* stream) {
-  if (s < 1 || s > 31 || n_planes < 1 || n_planes > kMaxPlanes || w < 1 ||
-      b2 < 0 || b2 > 0x7FFFFFFF || (w + kThreads - 1) / kThreads > 65535)
+  if (s < 1 || s > 255 || n_planes != bit_length(s) || w < 1 || b2 < 0 ||
+      b2 > 0x7FFFFFFF || (w + kThreads - 1) / kThreads > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (b2 > 0) {
     const dim3 grid(static_cast<unsigned>(b2),
                     static_cast<unsigned>((w + kThreads - 1) / kThreads));
-    chunk_scan_kernel<<<grid, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(presence), s, w, n_planes, bound,
-        static_cast<int32_t*>(cm), static_cast<int32_t*>(cc),
-        static_cast<uint32_t*>(planes));
+    const auto st = static_cast<cudaStream_t>(stream);
+    switch (n_planes) {  // 1..8, as s <= 255
+      case 1: launch<1>(grid, st, presence, s, w, bound, cm, cc, planes); break;
+      case 2: launch<2>(grid, st, presence, s, w, bound, cm, cc, planes); break;
+      case 3: launch<3>(grid, st, presence, s, w, bound, cm, cc, planes); break;
+      case 4: launch<4>(grid, st, presence, s, w, bound, cm, cc, planes); break;
+      case 5: launch<5>(grid, st, presence, s, w, bound, cm, cc, planes); break;
+      case 6: launch<6>(grid, st, presence, s, w, bound, cm, cc, planes); break;
+      case 7: launch<7>(grid, st, presence, s, w, bound, cm, cc, planes); break;
+      default: launch<8>(grid, st, presence, s, w, bound, cm, cc, planes);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,9 +22,10 @@
 // 32-bucket word. The block stages its s*nq row indices in shared
 // memory; the threads of a warp then read neighbouring words of the same
 // row, so every row read is a coalesced 512-byte sweep. The counters stay
-// in registers (at most 5 planes, s <= 31), and only cm/cc/planes are
-// written: presence never exists in device memory. There is no tile
-// padding of the table: any width works.
+// in registers: the plane count is a template parameter, 1..8 (s <= 255),
+// picked from n_planes at the launch. Only cm/cc/planes are written:
+// presence never exists in device memory. There is no tile padding of
+// the table: any width works.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -32,9 +33,8 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kMaxPlanes = 5;       // s <= 31
 constexpr int kMaxNq = 16;          // k <= 16
-constexpr int kMaxRowIdx = 31 * kMaxNq;
+constexpr int kMaxRowIdx = 255 * kMaxNq;
 
 __device__ __forceinline__ uint32_t valid_word_mask(int64_t colbase,
                                                     int32_t bound) {
@@ -44,10 +44,11 @@ __device__ __forceinline__ uint32_t valid_word_mask(int64_t colbase,
   return (1u << rem) - 1u;
 }
 
+template <int NP>
 __global__ void __launch_bounds__(kThreads)
 coarse_score_kernel(const uint32_t* __restrict__ table, int64_t w,
                     const int32_t* __restrict__ rows, int s, int nq,
-                    int n_planes, int32_t bound, int32_t* __restrict__ cm,
+                    int32_t bound, int32_t* __restrict__ cm,
                     int32_t* __restrict__ cc, uint32_t* __restrict__ planes) {
   __shared__ int32_t srow[kMaxRowIdx];
   const int64_t r = blockIdx.x;
@@ -58,9 +59,9 @@ coarse_score_kernel(const uint32_t* __restrict__ table, int64_t w,
   const int64_t col = static_cast<int64_t>(blockIdx.y) * kThreads + threadIdx.x;
   if (col >= w) return;
 
-  uint32_t pl[kMaxPlanes];
+  uint32_t pl[NP];
 #pragma unroll
-  for (int j = 0; j < kMaxPlanes; ++j) pl[j] = 0u;
+  for (int j = 0; j < NP; ++j) pl[j] = 0u;
 
 #pragma unroll 2
   for (int i = 0; i < s; ++i) {
@@ -70,12 +71,10 @@ coarse_score_kernel(const uint32_t* __restrict__ table, int64_t w,
       if (q < nq)
         carry &= __ldg(table + static_cast<int64_t>(srow[i * nq + q]) * w + col);
 #pragma unroll
-    for (int j = 0; j < kMaxPlanes; ++j) {
-      if (j < n_planes) {
-        const uint32_t t = pl[j] & carry;
-        pl[j] ^= carry;
-        carry = t;
-      }
+    for (int j = 0; j < NP; ++j) {
+      const uint32_t t = pl[j] & carry;
+      pl[j] ^= carry;
+      carry = t;
     }
   }
 
@@ -85,21 +84,31 @@ coarse_score_kernel(const uint32_t* __restrict__ table, int64_t w,
   uint32_t cand = vmask;
   int m = 0;
 #pragma unroll
-  for (int j = kMaxPlanes - 1; j >= 0; --j) {
-    if (j < n_planes) {
-      const uint32_t t = cand & pl[j];
-      const int nz = t != 0u;
-      if (nz) cand = t;
-      m = m * 2 + nz;
-    }
+  for (int j = NP - 1; j >= 0; --j) {
+    const uint32_t t = cand & pl[j];
+    const int nz = t != 0u;
+    if (nz) cand = t;
+    m = m * 2 + nz;
   }
   const int64_t o = r * w + col;
   cm[o] = vmask == 0u ? -1 : m;
   cc[o] = vmask == 0u ? 32 : __popc(cand);
 #pragma unroll
-  for (int j = 0; j < kMaxPlanes; ++j)
-    if (j < n_planes) planes[(r * n_planes + j) * w + col] = pl[j];
+  for (int j = 0; j < NP; ++j) planes[(r * NP + j) * w + col] = pl[j];
 }
+
+template <int NP>
+void launch(const dim3& grid, cudaStream_t stream, const void* table,
+            int64_t w, const void* rows, int s, int nq, int32_t bound,
+            void* cm, void* cc, void* planes) {
+  coarse_score_kernel<NP><<<grid, kThreads, 0, stream>>>(
+      static_cast<const uint32_t*>(table), w,
+      static_cast<const int32_t*>(rows), s, nq, bound,
+      static_cast<int32_t*>(cm), static_cast<int32_t*>(cc),
+      static_cast<uint32_t*>(planes));
+}
+
+int bit_length(int s) { return 32 - __builtin_clz(static_cast<unsigned>(s)); }
 
 }  // namespace
 
@@ -110,19 +119,24 @@ extern "C" int bm_coarse_score(const void* table, int64_t w, const void* rows,
                                int64_t b2, int s, int nq, int n_planes,
                                int32_t bound, void* cm, void* cc, void* planes,
                                void* stream) {
-  if (s < 1 || s > 31 || nq < 1 || nq > kMaxNq || n_planes < 1 ||
-      n_planes > kMaxPlanes || w < 1 || b2 < 0 || b2 > 0x7FFFFFFF ||
+  if (s < 1 || s > 255 || nq < 1 || nq > kMaxNq ||
+      n_planes != bit_length(s) || w < 1 || b2 < 0 || b2 > 0x7FFFFFFF ||
       (w + kThreads - 1) / kThreads > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (b2 > 0) {
     const dim3 grid(static_cast<unsigned>(b2),
                     static_cast<unsigned>((w + kThreads - 1) / kThreads));
-    coarse_score_kernel<<<grid, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(table), w,
-        static_cast<const int32_t*>(rows), s, nq, n_planes, bound,
-        static_cast<int32_t*>(cm), static_cast<int32_t*>(cc),
-        static_cast<uint32_t*>(planes));
+    const auto st = static_cast<cudaStream_t>(stream);
+    switch (n_planes) {  // 1..8, as s <= 255
+      case 1: launch<1>(grid, st, table, w, rows, s, nq, bound, cm, cc, planes); break;
+      case 2: launch<2>(grid, st, table, w, rows, s, nq, bound, cm, cc, planes); break;
+      case 3: launch<3>(grid, st, table, w, rows, s, nq, bound, cm, cc, planes); break;
+      case 4: launch<4>(grid, st, table, w, rows, s, nq, bound, cm, cc, planes); break;
+      case 5: launch<5>(grid, st, table, w, rows, s, nq, bound, cm, cc, planes); break;
+      case 6: launch<6>(grid, st, table, w, rows, s, nq, bound, cm, cc, planes); break;
+      case 7: launch<7>(grid, st, table, w, rows, s, nq, bound, cm, cc, planes); break;
+      default: launch<8>(grid, st, table, w, rows, s, nq, bound, cm, cc, planes);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,11 +4,16 @@
     _coarse_score_pallas in interpret mode and against _chunk_scan_jnp
     over the gathered presence words;
   * the port's CoarseMapper (candidates, counts, good k-mer counts)
-    against the JAX CoarseMapper.query_batch.
+    against the JAX CoarseMapper.query_batch, at 6 and 8 samples and at
+    32 (six bit planes, past the five that s <= 31 needs).
 """
 
-import numpy as np
+import contextlib
+import dataclasses
+
+import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -32,7 +37,8 @@ def _table(rng, G1, w):
     return tab
 
 
-@pytest.mark.parametrize("s,bound_off", [(15, 17), (6, 200)])
+@pytest.mark.parametrize("s,bound_off", [(15, 17), (6, 200), (32, 17),
+                                         (40, 200)])
 def test_coarse_score_plain_matches_pallas_and_chunk_scan(s, bound_off):
     rng = np.random.default_rng(s)
     G1, S8, nq, B2 = 64, 8, 4, 8
@@ -66,6 +72,10 @@ CFG = MapperConfig(bucket_len=4096, read_len=150, index_seed=6, query_seed=9,
 def _world(name):
     if name == "random":
         return CFG, random_genome(80_000, seed=11, n_refs=2)
+    if name == "random_s32":
+        # 32 samples: six bit planes per count
+        return (dataclasses.replace(CFG, mapper_samples=32),
+                random_genome(80_000, seed=11, n_refs=2))
     if name == "repeats":
         # repeats + a small candidate cap: reads cleared for too many ties
         return (MapperConfig(bucket_len=1024, read_len=100, index_seed=5,
@@ -78,7 +88,7 @@ def _world(name):
             random_genome(60_000, seed=12, n_refs=1))
 
 
-@pytest.mark.parametrize("name", ["random", "repeats", "frac"])
+@pytest.mark.parametrize("name", ["random", "repeats", "frac", "random_s32"])
 def test_coarse_mapper_matches_jax(name):
     cfg, genome = _world(name)
     index = build_index(genome, cfg)
@@ -96,7 +106,12 @@ def test_coarse_mapper_matches_jax(name):
         lengths[i] = len(c)
     quals[-4:] = 0                      # low-quality reads give up
     lengths[-6] = 5                     # shorter than k: no k-mers at all
-    want = JaxCoarse(index).query_batch(codes, quals, lengths)
+    # XLA's CPU compile of the JAX query grows steeply with s (5 s at
+    # s = 16, 30 s at 24, over ten minutes at 32): run it op by op there
+    eager = jax.disable_jit() if cfg.mapper_samples >= 32 else \
+        contextlib.nullcontext()
+    with eager:
+        want = JaxCoarse(index).query_batch(codes, quals, lengths)
     got = CoarseMapper(port_index(index), "cpu").query_batch(codes, quals,
                                                              lengths)
     for g, w, what in zip(got, want, ("cand", "counts", "num_good")):

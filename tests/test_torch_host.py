@@ -20,7 +20,6 @@ from bucketmap_tpu import config as jax_config
 from bucketmap_tpu.index import builder as jax_builder
 from bucketmap_tpu.io import fasta as jax_fasta
 from bucketmap_tpu.io import fastq as jax_fastq
-from bucketmap_tpu.io import native as jax_native
 from bucketmap_tpu.io import sam as jax_sam
 from bucketmap_tpu.ops import encoding as jax_enc
 from bucketmap_tpu.ops import sampler as jax_sampler
@@ -125,22 +124,30 @@ def _fastq_bytes(seed, n=60, crlf=False):
 @pytest.mark.parametrize("use_native", [True, False])
 @pytest.mark.parametrize("max_len", [None, 150])
 def test_fastq_parse_matches(use_native, max_len, tmp_path):
+    """The port's parse (its C++ library, or numpy) against the JAX
+    package's numpy parse and the port's own numpy parse. The JAX side
+    stays on numpy: its library is built at first use by whichever test
+    process finds it missing, so another process can load it half
+    written and keep that failure."""
     if use_native:
-        assert native.available() and jax_native.available()
+        assert native.available()
     data = _fastq_bytes(3, crlf=not use_native)
     got = fastq.parse_fastq(data, max_len=max_len, use_native=use_native)
-    want = jax_fastq.parse_fastq(data, max_len=max_len, use_native=use_native)
-    for name in ("codes", "quals", "lengths", "seq_ascii", "qual_ascii",
-                 "ids_buf", "id_offsets"):
-        x, y = getattr(got, name), getattr(want, name)
-        assert x.dtype == y.dtype, name
-        np.testing.assert_array_equal(x, y, err_msg=name)
-    assert got.ids == want.ids and len(got.ids) == 60
+    wants = (jax_fastq.parse_fastq(data, max_len=max_len, use_native=False),
+             fastq.parse_fastq(data, max_len=max_len, use_native=False))
+    for want in wants:
+        for name in ("codes", "quals", "lengths", "seq_ascii", "qual_ascii",
+                     "ids_buf", "id_offsets"):
+            x, y = getattr(got, name), getattr(want, name)
+            assert x.dtype == y.dtype, name
+            np.testing.assert_array_equal(x, y, err_msg=name)
+        assert got.ids == want.ids and len(got.ids) == 60
     path = tmp_path / "r.fastq"
     path.write_bytes(data * 3)
-    batches = [list(pkg.iter_fastq_batches(path, reads_per_batch=50,
-                                           use_native=use_native))
-               for pkg in (fastq, jax_fastq)]
+    batches = [list(fastq.iter_fastq_batches(path, reads_per_batch=50,
+                                             use_native=use_native)),
+               list(jax_fastq.iter_fastq_batches(path, reads_per_batch=50,
+                                                 use_native=False))]
     assert [b.num_reads for b in batches[0]] == [50, 50, 50, 30]
     for g, w in zip(*batches):
         np.testing.assert_array_equal(g.codes, w.codes)

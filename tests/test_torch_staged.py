@@ -70,6 +70,8 @@ def test_presence_gather_plain_repeated_rows():
     (8, 128, 128 * 32),                # no boundary, no padding
     (6, 40, 13 * 32),                  # word-aligned boundary, w < 128
     (31, 130, 0),                      # everything masked: -1 / 32
+    (32, 130, 130 * 32 - 45),          # six planes
+    (40, 40, 35 * 32 + 7),             # six planes, mid-word boundary
 ])
 def test_chunk_scan_plain_matches_pallas_and_jnp(s, w, bound):
     rng = np.random.default_rng(s + w)
