@@ -13,28 +13,57 @@
 // past `bound` are masked so the all-ones sentinel row adds no phantom
 // buckets (max -1, count 32 for a fully masked word).
 //
-// What bounds it on the H100: device-memory traffic. Every read-strand
-// reads s*nq whole occupancy rows (60 rows of ~3.2 KB at the bench
-// shape, ~6.4 GB per 16384-read batch) from a table far larger than L2,
-// and does a handful of integer ops per word read.
+// What bounds it on the H100. At the bench shape (32,768 read-strands x
+// 15 samples x 4 q-grams per batch, a 262,145 x 811-word table) the
+// read-strands gather 1.97 M rows: 6.38 GB, from a 0.85 GB table, so
+// each row is gathered ~7.5 times a batch. The outputs are 0.64 GB. The
+// least traffic is the table once from device memory plus the outputs
+// (~1.5 GB, ~0.45 ms); the gathers themselves can be served by the L2
+// only if the part of the table being gathered from fits in it.
 //
-// Design: one block per (read-strand, 128-word tile); one thread owns one
-// 32-bucket word. The block stages its s*nq row indices in shared
-// memory; the threads of a warp then read neighbouring words of the same
-// row, so every row read is a coalesced 512-byte sweep. The counters stay
-// in registers: the plane count is a template parameter, 1..8 (s <= 255),
-// picked from n_planes at the launch. Only cm/cc/planes are written:
-// presence never exists in device memory. There is no tile padding of
-// the table: any width works.
+// Design: a column sweep. The work unit is (a tile of kWt words, a block
+// of read-strands); the grid's linear block id runs over read-strand
+// blocks fastest and column tiles slowest, so every read-strand passes
+// over one column tile before the next tile starts, and the tile's slice
+// of the table (262,145 rows x kWt words) is what the L2 must hold. A
+// group of kWt lanes owns one read-strand, one lane per 32-bucket word.
+// The table's rows are 3,244 B apart, not a multiple of the 32 B sector,
+// so a row's kWt-word slice spans on average 1.875 sectors at kWt = 8,
+// 2.875 at 16 and 4.875 at 32: a slice takes ~15.7, ~24.1 or ~40.9 MB of
+// the L2, and the gathers move ~12.0, ~9.2 or ~7.8 GB a batch from the
+// L2 (table reads from device memory ~1.6, ~1.2 or ~1.0 GB, each tile
+// reading the sectors it shares with its neighbours again). The
+// read-strands in flight cover part of a second tile's slice at a tile
+// boundary, the outputs stream past, and the L2 is split in two halves,
+// so only the narrower tiles can stay resident; kWt is the one that
+// measured fastest (PERF.md). Each thread keeps 16 independent table
+// loads in flight: the group's row indices come in with one coalesced
+// load per 16 gathers (the next batch's while this batch's rows arrive)
+// and go to the lanes by shuffles, so no shared memory caps s. The rows
+// array (7.9 MB a batch) is read once per tile (51 tiles at kWt = 16:
+// ~0.4 GB from the L2). The counters stay in registers: the plane count
+// is a template parameter, 1..8 (s <= 255), picked from n_planes at the
+// launch. Outputs go out with streaming (evict-first) stores so they do
+// not push the table slice out of the L2. An L2 access-policy window
+// cannot name the slice: it is one strided word run per row, not one
+// address range.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#ifndef BM_COARSE_WT
+#define BM_COARSE_WT 16
+#endif
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kMaxNq = 16;          // k <= 16
-constexpr int kMaxRowIdx = 255 * kMaxNq;
+constexpr int kWt = BM_COARSE_WT;   // words per column tile
+static_assert(kWt == 8 || kWt == 16 || kWt == 32, "kWt is 8, 16 or 32");
+constexpr int kThreads = 256;
+constexpr int kStrands = kThreads / kWt;        // read-strands per block
+constexpr int kBatch = 16;                      // table loads in flight
+constexpr int kIdxRegs = (kBatch + kWt - 1) / kWt;
+constexpr int kMaxNq = 16;                      // k <= 16
 
 __device__ __forceinline__ uint32_t valid_word_mask(int64_t colbase,
                                                     int32_t bound) {
@@ -44,39 +73,74 @@ __device__ __forceinline__ uint32_t valid_word_mask(int64_t colbase,
   return (1u << rem) - 1u;
 }
 
+// this lane's share of the row indices j0 .. j0 + kBatch - 1: index
+// j0 + lane + m * kWt in idx[m]
+__device__ __forceinline__ void load_indices(const int32_t* my_rows, int j0,
+                                             int n_idx, int lane,
+                                             int32_t (&idx)[kIdxRegs]) {
+#pragma unroll
+  for (int m = 0; m < kIdxRegs; ++m) {
+    const int b = lane + m * kWt;
+    idx[m] = (b < kBatch && j0 + b < n_idx) ? __ldg(my_rows + j0 + b) : 0;
+  }
+}
+
 template <int NP>
 __global__ void __launch_bounds__(kThreads)
 coarse_score_kernel(const uint32_t* __restrict__ table, int64_t w,
-                    const int32_t* __restrict__ rows, int s, int nq,
-                    int32_t bound, int32_t* __restrict__ cm,
+                    const int32_t* __restrict__ rows, int64_t b2, int s,
+                    int nq, int32_t bound, int32_t* __restrict__ cm,
                     int32_t* __restrict__ cc, uint32_t* __restrict__ planes) {
-  __shared__ int32_t srow[kMaxRowIdx];
-  const int64_t r = blockIdx.x;
+  const int lane = threadIdx.x % kWt;
+  const int64_t r_in = static_cast<int64_t>(blockIdx.x) * kStrands +
+                       threadIdx.x / kWt;
+  const int64_t col_in = static_cast<int64_t>(blockIdx.y) * kWt + lane;
+  // every lane runs the whole loop (the shuffles take the full warp);
+  // lanes past the last read-strand or word load in range, store nothing
+  const bool live = r_in < b2 && col_in < w;
+  const int64_t r = r_in < b2 ? r_in : b2 - 1;
+  const int64_t col = col_in < w ? col_in : w - 1;
   const int n_idx = s * nq;
-  for (int i = threadIdx.x; i < n_idx; i += blockDim.x)
-    srow[i] = rows[r * n_idx + i];
-  __syncthreads();
-  const int64_t col = static_cast<int64_t>(blockIdx.y) * kThreads + threadIdx.x;
-  if (col >= w) return;
+  const int32_t* my_rows = rows + r * n_idx;
+  const uint32_t* tcol = table + col;
 
   uint32_t pl[NP];
 #pragma unroll
   for (int j = 0; j < NP; ++j) pl[j] = 0u;
+  uint32_t acc = 0xFFFFFFFFu;
+  int qc = 0;
 
-#pragma unroll 2
-  for (int i = 0; i < s; ++i) {
-    uint32_t carry = 0xFFFFFFFFu;
+  int32_t idx[kIdxRegs];
+  load_indices(my_rows, 0, n_idx, lane, idx);
+  for (int j0 = 0; j0 < n_idx; j0 += kBatch) {
+    uint32_t v[kBatch];
 #pragma unroll
-    for (int q = 0; q < kMaxNq; ++q)
-      if (q < nq)
-        carry &= __ldg(table + static_cast<int64_t>(srow[i * nq + q]) * w + col);
+    for (int b = 0; b < kBatch; ++b) {
+      const int32_t row = __shfl_sync(0xFFFFFFFFu, idx[b / kWt], b % kWt,
+                                      kWt);
+      v[b] = j0 + b < n_idx ? __ldg(tcol + static_cast<int64_t>(row) * w)
+                            : 0xFFFFFFFFu;
+    }
+    load_indices(my_rows, j0 + kBatch, n_idx, lane, idx);
 #pragma unroll
-    for (int j = 0; j < NP; ++j) {
-      const uint32_t t = pl[j] & carry;
-      pl[j] ^= carry;
-      carry = t;
+    for (int b = 0; b < kBatch; ++b) {
+      if (j0 + b < n_idx) {
+        acc &= v[b];
+        if (++qc == nq) {       // a sample's rows are in: count its word
+          uint32_t carry = acc;
+#pragma unroll
+          for (int j = 0; j < NP; ++j) {
+            const uint32_t t = pl[j] & carry;
+            pl[j] ^= carry;
+            carry = t;
+          }
+          acc = 0xFFFFFFFFu;
+          qc = 0;
+        }
+      }
     }
   }
+  if (!live) return;
 
   // bitwise max over the packed counters: scan planes high to low,
   // narrowing the candidate set to buckets that have each max bit
@@ -91,19 +155,19 @@ coarse_score_kernel(const uint32_t* __restrict__ table, int64_t w,
     m = m * 2 + nz;
   }
   const int64_t o = r * w + col;
-  cm[o] = vmask == 0u ? -1 : m;
-  cc[o] = vmask == 0u ? 32 : __popc(cand);
+  __stcs(cm + o, vmask == 0u ? -1 : m);
+  __stcs(cc + o, vmask == 0u ? 32 : __popc(cand));
 #pragma unroll
-  for (int j = 0; j < NP; ++j) planes[(r * NP + j) * w + col] = pl[j];
+  for (int j = 0; j < NP; ++j) __stcs(planes + (r * NP + j) * w + col, pl[j]);
 }
 
 template <int NP>
 void launch(const dim3& grid, cudaStream_t stream, const void* table,
-            int64_t w, const void* rows, int s, int nq, int32_t bound,
-            void* cm, void* cc, void* planes) {
+            int64_t w, const void* rows, int64_t b2, int s, int nq,
+            int32_t bound, void* cm, void* cc, void* planes) {
   coarse_score_kernel<NP><<<grid, kThreads, 0, stream>>>(
       static_cast<const uint32_t*>(table), w,
-      static_cast<const int32_t*>(rows), s, nq, bound,
+      static_cast<const int32_t*>(rows), b2, s, nq, bound,
       static_cast<int32_t*>(cm), static_cast<int32_t*>(cc),
       static_cast<uint32_t*>(planes));
 }
@@ -120,22 +184,24 @@ extern "C" int bm_coarse_score(const void* table, int64_t w, const void* rows,
                                int32_t bound, void* cm, void* cc, void* planes,
                                void* stream) {
   if (s < 1 || s > 255 || nq < 1 || nq > kMaxNq ||
-      n_planes != bit_length(s) || w < 1 || b2 < 0 || b2 > 0x7FFFFFFF ||
-      (w + kThreads - 1) / kThreads > 65535)
+      n_planes != bit_length(s) || w < 1 || b2 < 0 ||
+      (b2 + kStrands - 1) / kStrands > 0x7FFFFFFF ||
+      (w + kWt - 1) / kWt > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (b2 > 0) {
-    const dim3 grid(static_cast<unsigned>(b2),
-                    static_cast<unsigned>((w + kThreads - 1) / kThreads));
+    // read-strand blocks fastest, column tiles slowest
+    const dim3 grid(static_cast<unsigned>((b2 + kStrands - 1) / kStrands),
+                    static_cast<unsigned>((w + kWt - 1) / kWt));
     const auto st = static_cast<cudaStream_t>(stream);
     switch (n_planes) {  // 1..8, as s <= 255
-      case 1: launch<1>(grid, st, table, w, rows, s, nq, bound, cm, cc, planes); break;
-      case 2: launch<2>(grid, st, table, w, rows, s, nq, bound, cm, cc, planes); break;
-      case 3: launch<3>(grid, st, table, w, rows, s, nq, bound, cm, cc, planes); break;
-      case 4: launch<4>(grid, st, table, w, rows, s, nq, bound, cm, cc, planes); break;
-      case 5: launch<5>(grid, st, table, w, rows, s, nq, bound, cm, cc, planes); break;
-      case 6: launch<6>(grid, st, table, w, rows, s, nq, bound, cm, cc, planes); break;
-      case 7: launch<7>(grid, st, table, w, rows, s, nq, bound, cm, cc, planes); break;
-      default: launch<8>(grid, st, table, w, rows, s, nq, bound, cm, cc, planes);
+      case 1: launch<1>(grid, st, table, w, rows, b2, s, nq, bound, cm, cc, planes); break;
+      case 2: launch<2>(grid, st, table, w, rows, b2, s, nq, bound, cm, cc, planes); break;
+      case 3: launch<3>(grid, st, table, w, rows, b2, s, nq, bound, cm, cc, planes); break;
+      case 4: launch<4>(grid, st, table, w, rows, b2, s, nq, bound, cm, cc, planes); break;
+      case 5: launch<5>(grid, st, table, w, rows, b2, s, nq, bound, cm, cc, planes); break;
+      case 6: launch<6>(grid, st, table, w, rows, b2, s, nq, bound, cm, cc, planes); break;
+      case 7: launch<7>(grid, st, table, w, rows, b2, s, nq, bound, cm, cc, planes); break;
+      default: launch<8>(grid, st, table, w, rows, b2, s, nq, bound, cm, cc, planes);
     }
   }
   return static_cast<int>(cudaGetLastError());

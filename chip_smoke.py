@@ -8,8 +8,9 @@ Phases, each reported on its own line:
      CUDA versions, whether nvcc and triton are present; exits non-zero
      without a CUDA device;
   2. build: the six CUDA kernels from bucketmap_tpu_torch/csrc, one
-     nvcc for sm_90a per source, all started together, and the C++ host
-     library from csrc/host with g++;
+     nvcc for sm_90a per source, all started together with the coarse
+     score's column-tile sweep builds (its source at each tile width of
+     WT_SWEEP), and the C++ host library from csrc/host with g++;
   3. world: the bench world (bench.py's seeded repeat genome, index and
      simulated 300 bp reads), cached under .bench_cache/;
   4. main path: BucketMapPipeline(..., device="cuda").map_fastq over all
@@ -20,7 +21,10 @@ Phases, each reported on its own line:
      device time (a spin kernel keeps the device ahead of the host; the
      L2 flushed before each launch, and warm), its time as one call on
      an idle device, its bound from this run's inputs and its share of
-     it;
+     it; the coarse score also at 32 samples per read-strand (six bit
+     planes, the batch's sample rows regrouped), and at the full batch
+     for each tile width of the sweep, in turns, beside the previous
+     design's time;
   6. align mode: BucketMapPipeline(..., align=True).map_fastq over the
      same reads, DP sub-batches of 16384 pairs; checks accuracy, CIGAR
      lengths and that the DP kernel and every map-stage kernel launched;
@@ -29,7 +33,8 @@ Phases, each reported on its own line:
      16384-pair sub-batch, and one whole align sub-batch as one call;
   8. the mesh step on torch.distributed (nccl, one rank, mesh (1, 1)):
      the staged coarse branch's two kernels against their plain versions
-     on phase 5's rows (exact, times), one batch through the mesh step
+     on phase 5's rows (exact, times; the chunk scan also at 32 samples),
+     one batch through the mesh step
      with each coarse path (word for word the single-device step of
      phase 5), then BucketMapPipeline(mesh=..., coarse_path="staged")
      over all reads: SAM byte for byte phase 4's, the accuracy floors,
@@ -54,6 +59,8 @@ JSON result.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import ctypes
 import filecmp
 import gc
 import importlib.util
@@ -78,6 +85,12 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 16.7e12
 L2_FLUSH_BYTES = 256 << 20    # written before a cold launch: > the 50 MB L2
 DP_OPS_PER_CELL = 15          # int ops of one dp_fwd cell's recurrence
+WIDE_S = 32                   # samples per read-strand of the six-plane checks
+WT_SWEEP = (8, 16, 32)        # coarse score column-tile widths (-DBM_COARSE_WT)
+# the coarse score's previous design (one block per read-strand and
+# 128-word tile) at the full batch, L2 flushed: NVIDIA H100 80GB HBM3,
+# 700 W, this script
+ROW_TILE_COARSE_MS = 3.4972
 
 
 def log(msg: str) -> None:
@@ -273,14 +286,91 @@ def check_kernel(torch, timer, name, src, replaces, kern, plain, shape,
             "library_ms": None}
 
 
-def full_size(torch, timer, name, what, fn, bound) -> None:
-    """Log a kernel's device time at a full batch beside its bound."""
+def check_equal(torch, name, what, kern, plain) -> None:
+    """A kernel against its plain version on the same inputs, exactly,
+    untimed."""
+    got = kern()
+    torch.cuda.synchronize()
+    want = plain()
+    err = max_abs_err(torch, got, want)
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    log(f"[kernel] {name}: {what}; equal {equal} max_abs_err {err}")
+    if not equal:
+        raise RuntimeError(f"{name} disagrees with its plain version ({what})")
+
+
+def full_size(torch, timer, name, what, fn, bound) -> float:
+    """Log a kernel's device time at a full batch beside its bound;
+    returns the time."""
     cold = timer.ms(fn, reps=5, cold=True)
     bound_ms, bound_by = bound_of(*bound)
     log(f"[kernel] {name} at {what}: device {cold:.4f} ms with the L2 "
         f"flushed; bound {bound_ms:.4f} ms by {bound_by} "
         f"({bound[0] / 1e9:.3f} GB, {bound[1] / 1e9:.3f} G int ops), share "
         f"{bound_ms / cold:.3f}")
+    return cold
+
+
+def build_sweep(kernels, pool) -> dict:
+    """Start the coarse score's build at each tile width of WT_SWEEP;
+    returns {width: future of the library path}."""
+    return {wt: pool.submit(kernels.build, ("coarse_score.cu",),
+                            (f"-DBM_COARSE_WT={wt}",), {})
+            for wt in WT_SWEEP}
+
+
+def coarse_runner(torch, lib, table, rows, bound: int, s: int):
+    """A call of one library's bm_coarse_score on these inputs, into
+    outputs allocated once (the wrapper's shapes)."""
+    R, nq = rows.shape
+    B2, w = R // s, table.shape[1]
+    n_planes = s.bit_length()
+    dev = table.device
+    outs = (torch.empty((B2, w), dtype=torch.int32, device=dev),
+            torch.empty((B2, w), dtype=torch.int32, device=dev),
+            torch.empty((B2, n_planes, w), dtype=torch.int32, device=dev))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def run():
+        err = lib.bm_coarse_score(
+            table.data_ptr(), w, rows.data_ptr(), B2, s, nq, n_planes,
+            int(bound), *(o.data_ptr() for o in outs), stream)
+        if err:
+            raise RuntimeError(f"bm_coarse_score: cudaError {err}")
+        return outs
+    return run
+
+
+def coarse_sweep(torch, timer, kernels, sweep, table, rows, bound: int,
+                 s: int, shipped_ms: float) -> dict:
+    """The coarse score built at each tile width, at the full batch: the
+    outputs equal the shipped kernel's, and the device times with the L2
+    flushed, in turns (widths up, then down). Returns {width: [ms, ms]}."""
+    want = tuple(t.clone() for t in
+                 coarse_runner(torch, kernels.library(), table, rows, bound,
+                               s)())
+    runs = {}
+    for wt, fut in sweep.items():
+        runs[wt] = coarse_runner(
+            torch, kernels.bind(ctypes.CDLL(fut.result())), table, rows,
+            bound, s)
+        got = runs[wt]()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise RuntimeError(f"coarse_score at tile width {wt} differs "
+                               f"from the shipped kernel")
+    del want
+    times = {wt: [] for wt in runs}
+    for wt in list(runs) + list(runs)[::-1]:
+        times[wt].append(timer.ms(runs[wt], reps=5, cold=True))
+    log(f"[sweep] coarse_score at the full batch by column-tile width, L2 "
+        f"flushed, in turns: " + "; ".join(
+            f"{wt} words {t[0]:.4f}/{t[1]:.4f} ms" for wt, t in times.items())
+        + f"; shipped (BM_COARSE_WT default) {shipped_ms:.4f} ms; the "
+        f"previous design (a block per read-strand and 128-word tile) "
+        f"{ROW_TILE_COARSE_MS} ms on an NVIDIA H100 80GB HBM3 at 700 W; "
+        f"card {card_name_and_limit()}")
+    return times
 
 
 def check_cigars(sam_path: str):
@@ -357,6 +447,12 @@ def mesh_phase(torch, timer, index, fastq, gt, sam, dev, rows_all, packed,
     # the staged kernels on the main path's rows (phase 5's first batch)
     rows = rows_all[: COARSE_ROWS * s].contiguous()
     presence = presence_gather(table, rows).reshape(COARSE_ROWS // 2, 2, s, w)
+    wide = presence_gather(table, rows_all[: COARSE_ROWS * WIDE_S]
+                           .contiguous()).reshape(COARSE_ROWS, WIDE_S, w)
+    check_equal(torch, "chunk_scan", f"{COARSE_ROWS} read-strands x {WIDE_S} "
+                f"samples (six bit planes) x {w} words",
+                lambda: chunk_scan(wide, n), lambda: chunk_scan_plain(wide, n))
+    del wide
     cases = [
         ("presence_gather", "bucketmap_tpu_torch/csrc/presence_gather.cu",
          "bucketmap_tpu/ops/coarse.py:179",
@@ -615,6 +711,8 @@ def main() -> int:
 
     # ---- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
+    pool = concurrent.futures.ThreadPoolExecutor(len(WT_SWEEP))
+    sweep = build_sweep(kernels, pool)
     kernels.library()
     regs = [ln.strip() for ln in kernels.BUILD_INFO.get("log", "").splitlines()
             if "registers" in ln]
@@ -622,6 +720,11 @@ def main() -> int:
         f"{kernels.BUILD_INFO['path']} in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {kernels.BUILD_INFO['seconds']:.2f} s, sm_90a); ptxas: "
         f"{'; '.join(sorted(set(regs)))}")
+    for wt, fut in sweep.items():
+        fut.result()
+    pool.shutdown()
+    log(f"[build] coarse_score at column-tile widths {WT_SWEEP} built "
+        f"{time.perf_counter() - t0:.2f} s after the start")
     from bucketmap_tpu_torch.io import native
     t0 = time.perf_counter()
     if not native.available():
@@ -719,10 +822,20 @@ def main() -> int:
     ]
     report = [check_kernel(torch, timer, *case, launches[case[0]],
                            launches[case[0]]) for case in cases]
-    full_size(torch, timer, "coarse_score",
-              f"the full batch ({rows_all.shape[0] // s} read-strands)",
-              lambda: coarse_score(table, rows_all, index.n_buckets, s),
-              coarse_bound(torch, table, rows_all, s))
+    wide = rows_all[: COARSE_ROWS * WIDE_S].contiguous()
+    check_equal(torch, "coarse_score", f"{COARSE_ROWS} read-strands x "
+                f"{WIDE_S} samples (six bit planes) x {table.shape[1]} words",
+                lambda: coarse_score(table, wide, index.n_buckets, WIDE_S),
+                lambda: coarse_score_plain(table, wide, index.n_buckets,
+                                           WIDE_S))
+    del wide
+    shipped_ms = full_size(
+        torch, timer, "coarse_score",
+        f"the full batch ({rows_all.shape[0] // s} read-strands)",
+        lambda: coarse_score(table, rows_all, index.n_buckets, s),
+        coarse_bound(torch, table, rows_all, s))
+    coarse_sweep(torch, timer, kernels, sweep, table, rows_all,
+                 index.n_buckets, s, shipped_ms)
     # the single-device step's vector of this batch, for phase 8
     vec_single = dm.step_packed(packed).cpu()
     del cases, pipe, dm, table, c, q_ok, lens, both, rows

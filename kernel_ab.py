@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
-"""The fine-window and tally kernels of this tree against another tree's,
-on the main path's own inputs, on one NVIDIA GPU.
+"""The coarse-score, fine-window and tally kernels of this tree against
+another tree's, on the main path's own inputs, on one NVIDIA GPU.
 
     python3 kernel_ab.py --parent DIR [--genome-mbp 1700]
 
 DIR holds another checkout of this repository (`git archive <commit> |
 tar -x -C DIR`). Each tree's kernel library is built from its own
-sources. The inputs are chip_smoke.py phase 5's: the first 4096-lane
-vote chunk of the bench world's first batch of 16,384 reads. Both
+sources. The inputs are chip_smoke.py phase 5's: the coarse score's
+sample rows of the bench world's first batch of 16,384 reads (32,768
+read-strands), and the first 4096-lane vote chunk of that batch. Both
 libraries must give the same outputs, equal to the plain versions. Each
 kernel is timed on the device (chip_smoke.DeviceTimer) in turns: the
-other tree, this tree, this tree, the other tree. Controlled variants of
+other tree, this tree, this tree, the other tree. The coarse score runs
+at the full batch with the L2 flushed, and this tree's source is also
+built at each column-tile width of chip_smoke.WT_SWEEP and timed in the
+same turns (the other tree, this tree, the widths up, the widths down,
+this tree, the other tree). Controlled variants of
 the window rows show what sets the window kernel's pace: the chunk's own
 rows with the L2 flushed and warm, the same rows sorted by table row (no
 scatter), and the first 4096 windows repeated (6 MB, held in the L2);
@@ -26,6 +31,8 @@ kernels. The last line of the output is one JSON object.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import ctypes
 import importlib.util
 import json
 import os
@@ -58,27 +65,39 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
-    from chip_smoke import DeviceTimer, call_ms, card_name_and_limit, log
+    from chip_smoke import (COARSE_ROWS, DeviceTimer, build_sweep, call_ms,
+                            card_name_and_limit, coarse_runner, log)
     from bucketmap_tpu_torch import kernels, world
     from bucketmap_tpu_torch.mapper.pipeline import BucketMapPipeline
+    from bucketmap_tpu_torch.ops.coarse import coarse_score_plain
+    from bucketmap_tpu_torch.ops.encoding import unpack_reads
     from bucketmap_tpu_torch.ops.vote import (fine_window, fine_window_plain,
                                               tally, tally_plain)
 
     card = card_name_and_limit()
     log(card)
     dev = torch.device("cuda", 0)
-    libs = {"this": kernels.library(),
-            "parent": load_kernels(os.path.abspath(args.parent),
-                                   "parent_kernels").library()}
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        sweep = build_sweep(kernels, pool)
+        parent = pool.submit(lambda: load_kernels(
+            os.path.abspath(args.parent), "parent_kernels").library())
+        libs = {"this": kernels.library(), "parent": parent.result()}
+        wide = {f"wt{wt}": kernels.bind(ctypes.CDLL(fut.result()))
+                for wt, fut in sweep.items()}
 
     index, fastq, _, world_s = world.bench_world(
         os.path.join(HERE, ".bench_cache"), args.genome_mbp, BATCH)
     pipe = BucketMapPipeline(index, device=dev, batch_size=BATCH,
                              pair_batch=BATCH)
     dm = pipe.device
+    cfg = index.config
     codes, quals, seg_len, _, _ = pipe._all_segments(
         world.first_reads(fastq, BATCH))
-    lanes = dm.compact_lanes(dm.pack(codes, quals, seg_len))
+    packed = dm.pack(codes, quals, seg_len)
+    both, _, _ = dm.coarse.sample_hashes(
+        *unpack_reads(packed, cfg.read_len, cfg.query_seed))
+    rows_all = dm.coarse.gram_rows(both)
+    lanes = dm.compact_lanes(packed)
     vargs = dm.chunk_args(lanes, 0)
     wargs, tgt_idx = dm.fine.window_args(*vargs)
     P, p = vargs[2].shape
@@ -121,6 +140,37 @@ def main() -> int:
         return run
 
     timer = DeviceTimer(torch, dev)
+    result = {"card": card, "windows": int(wargs[1].shape[0]), "pairs": P}
+
+    # the coarse score at the full batch, L2 flushed
+    s, n, table = cfg.mapper_samples, index.n_buckets, dm.coarse.qgram_words
+    coarse = {side: coarse_runner(torch, lib, table, rows_all, n, s)
+              for side, lib in {**libs, **wide}.items()}
+    few = rows_all[: COARSE_ROWS * s].contiguous()
+    want = coarse_score_plain(table, few, n, s)
+    got = coarse_runner(torch, libs["this"], table, few, n, s)()
+    ref = tuple(t.clone() for t in coarse["parent"]())
+    for side, run in coarse.items():
+        outs = run()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(outs, ref)):
+            raise RuntimeError(f"coarse_score ({side}) differs from the "
+                               f"other tree's")
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise RuntimeError("coarse_score disagrees with its plain version")
+    del few, want, got, ref
+    widths = list(wide)
+    order = ["parent", "this", *widths, *widths[::-1], "this", "parent"]
+    times = {side: [] for side in coarse}
+    for side in order:
+        times[side].append(timer.ms(coarse[side], reps=5, cold=True))
+    result["coarse_score"] = {"read_strands": rows_all.shape[0] // s,
+                              "full_batch_cold": times}
+    log(f"[coarse_score] {rows_all.shape[0] // s} read-strands x {s} samples "
+        f"x {table.shape[1]} words, L2 flushed, in turns {order}: device ms "
+        + "; ".join(f"{side} {t}" for side, t in times.items()))
+    del coarse
+
     ftf, frow = wargs[0], wargs[1]
     order = torch.argsort(frow.to(torch.int64).clamp(0, ftf.shape[0] - 3))
     window_cases = {
@@ -133,7 +183,6 @@ def main() -> int:
     all_valid = torch.ones_like(targs[1])
     tally_cases = {"chunk": targs,
                    "all_valid": (targs[0], all_valid, *targs[2:])}
-    result = {"card": card, "windows": int(frow.shape[0]), "pairs": P}
     f3 = (frow.to(torch.int64).clamp(0, ftf.shape[0] - 3)[:, None]
           + torch.arange(3, device=dev)).reshape(-1)
     table_f32 = ftf.view(torch.float32)
