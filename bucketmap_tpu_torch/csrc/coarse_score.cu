@@ -58,11 +58,14 @@
 namespace {
 
 constexpr int kWt = BM_COARSE_WT;   // words per column tile
-static_assert(kWt == 8 || kWt == 16 || kWt == 32, "kWt is 8, 16 or 32");
+static_assert(kWt == 8 || kWt == 16 || kWt == 32 || kWt == 64 || kWt == 128,
+              "kWt is 8, 16, 32, 64 or 128");
+constexpr int kWpl = kWt > 32 ? kWt / 32 : 1;   // words per lane
+constexpr int kGroup = kWt / kWpl;              // lanes per read-strand
 constexpr int kThreads = 256;
-constexpr int kStrands = kThreads / kWt;        // read-strands per block
-constexpr int kBatch = 16;                      // table loads in flight
-constexpr int kIdxRegs = (kBatch + kWt - 1) / kWt;
+constexpr int kStrands = kThreads / kGroup;     // read-strands per block
+constexpr int kBatch = 16 / kWpl;               // rows per batch: 16 loads
+constexpr int kIdxRegs = (kBatch + kGroup - 1) / kGroup;
 constexpr int kMaxNq = 16;                      // k <= 16
 
 __device__ __forceinline__ uint32_t valid_word_mask(int64_t colbase,
@@ -73,14 +76,36 @@ __device__ __forceinline__ uint32_t valid_word_mask(int64_t colbase,
   return (1u << rem) - 1u;
 }
 
+__device__ __forceinline__ uint32_t load_word(const uint32_t* p,
+                                              uint64_t policy) {
+#ifdef BM_COARSE_EVICT_LAST
+  uint32_t v;
+  asm volatile("ld.global.nc.L2::cache_hint.u32 %0, [%1], %2;"
+               : "=r"(v) : "l"(p), "l"(policy));
+  return v;
+#else
+  (void)policy;
+  return __ldg(p);
+#endif
+}
+
+template <typename T>
+__device__ __forceinline__ void store_word(T* p, T v) {
+#ifdef BM_COARSE_PLAIN_STORES
+  *p = v;
+#else
+  __stcs(p, v);
+#endif
+}
+
 // this lane's share of the row indices j0 .. j0 + kBatch - 1: index
-// j0 + lane + m * kWt in idx[m]
+// j0 + lane + m * kGroup in idx[m]
 __device__ __forceinline__ void load_indices(const int32_t* my_rows, int j0,
                                              int n_idx, int lane,
                                              int32_t (&idx)[kIdxRegs]) {
 #pragma unroll
   for (int m = 0; m < kIdxRegs; ++m) {
-    const int b = lane + m * kWt;
+    const int b = lane + m * kGroup;
     idx[m] = (b < kBatch && j0 + b < n_idx) ? __ldg(my_rows + j0 + b) : 0;
   }
 }
@@ -91,74 +116,99 @@ coarse_score_kernel(const uint32_t* __restrict__ table, int64_t w,
                     const int32_t* __restrict__ rows, int64_t b2, int s,
                     int nq, int32_t bound, int32_t* __restrict__ cm,
                     int32_t* __restrict__ cc, uint32_t* __restrict__ planes) {
-  const int lane = threadIdx.x % kWt;
+  const int lane = threadIdx.x % kGroup;
   const int64_t r_in = static_cast<int64_t>(blockIdx.x) * kStrands +
-                       threadIdx.x / kWt;
-  const int64_t col_in = static_cast<int64_t>(blockIdx.y) * kWt + lane;
+                       threadIdx.x / kGroup;
   // every lane runs the whole loop (the shuffles take the full warp);
   // lanes past the last read-strand or word load in range, store nothing
-  const bool live = r_in < b2 && col_in < w;
   const int64_t r = r_in < b2 ? r_in : b2 - 1;
-  const int64_t col = col_in < w ? col_in : w - 1;
   const int n_idx = s * nq;
   const int32_t* my_rows = rows + r * n_idx;
-  const uint32_t* tcol = table + col;
-
-  uint32_t pl[NP];
+  // lane's words: col0 + k * kGroup, so a warp's load is one run per row
+  const int64_t col0 = static_cast<int64_t>(blockIdx.y) * kWt + lane;
+  const uint32_t* tcol[kWpl];
 #pragma unroll
-  for (int j = 0; j < NP; ++j) pl[j] = 0u;
-  uint32_t acc = 0xFFFFFFFFu;
+  for (int k = 0; k < kWpl; ++k) {
+    const int64_t col = col0 + k * kGroup;
+    tcol[k] = table + (col < w ? col : w - 1);
+  }
+  uint64_t policy = 0;
+#ifdef BM_COARSE_EVICT_LAST
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;"
+               : "=l"(policy));
+#endif
+
+  uint32_t pl[kWpl][NP];
+  uint32_t acc[kWpl];
+#pragma unroll
+  for (int k = 0; k < kWpl; ++k) {
+    acc[k] = 0xFFFFFFFFu;
+#pragma unroll
+    for (int j = 0; j < NP; ++j) pl[k][j] = 0u;
+  }
   int qc = 0;
 
   int32_t idx[kIdxRegs];
   load_indices(my_rows, 0, n_idx, lane, idx);
   for (int j0 = 0; j0 < n_idx; j0 += kBatch) {
-    uint32_t v[kBatch];
+    uint32_t v[kBatch][kWpl];
 #pragma unroll
     for (int b = 0; b < kBatch; ++b) {
-      const int32_t row = __shfl_sync(0xFFFFFFFFu, idx[b / kWt], b % kWt,
-                                      kWt);
-      v[b] = j0 + b < n_idx ? __ldg(tcol + static_cast<int64_t>(row) * w)
-                            : 0xFFFFFFFFu;
+      const int64_t row = __shfl_sync(0xFFFFFFFFu, idx[b / kGroup],
+                                      b % kGroup, kGroup);
+#pragma unroll
+      for (int k = 0; k < kWpl; ++k)
+        v[b][k] = j0 + b < n_idx ? load_word(tcol[k] + row * w, policy)
+                                 : 0xFFFFFFFFu;
     }
     load_indices(my_rows, j0 + kBatch, n_idx, lane, idx);
 #pragma unroll
     for (int b = 0; b < kBatch; ++b) {
       if (j0 + b < n_idx) {
-        acc &= v[b];
-        if (++qc == nq) {       // a sample's rows are in: count its word
-          uint32_t carry = acc;
 #pragma unroll
-          for (int j = 0; j < NP; ++j) {
-            const uint32_t t = pl[j] & carry;
-            pl[j] ^= carry;
-            carry = t;
+        for (int k = 0; k < kWpl; ++k) acc[k] &= v[b][k];
+        if (++qc == nq) {       // a sample's rows are in: count its words
+#pragma unroll
+          for (int k = 0; k < kWpl; ++k) {
+            uint32_t carry = acc[k];
+#pragma unroll
+            for (int j = 0; j < NP; ++j) {
+              const uint32_t t = pl[k][j] & carry;
+              pl[k][j] ^= carry;
+              carry = t;
+            }
+            acc[k] = 0xFFFFFFFFu;
           }
-          acc = 0xFFFFFFFFu;
           qc = 0;
         }
       }
     }
   }
-  if (!live) return;
+  if (r_in >= b2) return;
 
-  // bitwise max over the packed counters: scan planes high to low,
-  // narrowing the candidate set to buckets that have each max bit
-  const uint32_t vmask = valid_word_mask(col * 32, bound);
-  uint32_t cand = vmask;
-  int m = 0;
 #pragma unroll
-  for (int j = NP - 1; j >= 0; --j) {
-    const uint32_t t = cand & pl[j];
-    const int nz = t != 0u;
-    if (nz) cand = t;
-    m = m * 2 + nz;
+  for (int k = 0; k < kWpl; ++k) {
+    const int64_t col = col0 + k * kGroup;
+    if (col >= w) break;
+    // bitwise max over the packed counters: scan planes high to low,
+    // narrowing the candidate set to buckets that have each max bit
+    const uint32_t vmask = valid_word_mask(col * 32, bound);
+    uint32_t cand = vmask;
+    int m = 0;
+#pragma unroll
+    for (int j = NP - 1; j >= 0; --j) {
+      const uint32_t t = cand & pl[k][j];
+      const int nz = t != 0u;
+      if (nz) cand = t;
+      m = m * 2 + nz;
+    }
+    const int64_t o = r * w + col;
+    store_word(cm + o, vmask == 0u ? -1 : m);
+    store_word(cc + o, vmask == 0u ? 32 : __popc(cand));
+#pragma unroll
+    for (int j = 0; j < NP; ++j)
+      store_word(planes + (r * NP + j) * w + col, pl[k][j]);
   }
-  const int64_t o = r * w + col;
-  __stcs(cm + o, vmask == 0u ? -1 : m);
-  __stcs(cc + o, vmask == 0u ? 32 : __popc(cand));
-#pragma unroll
-  for (int j = 0; j < NP; ++j) __stcs(planes + (r * NP + j) * w + col, pl[j]);
 }
 
 template <int NP>

@@ -86,7 +86,7 @@ INT32_OPS_PER_S = 16.7e12
 L2_FLUSH_BYTES = 256 << 20    # written before a cold launch: > the 50 MB L2
 DP_OPS_PER_CELL = 15          # int ops of one dp_fwd cell's recurrence
 WIDE_S = 32                   # samples per read-strand of the six-plane checks
-WT_SWEEP = (8, 16, 32)        # coarse score column-tile widths (-DBM_COARSE_WT)
+WT_SWEEP = (8, 16, 32, 64, 128)   # coarse score column-tile widths (-DBM_COARSE_WT)
 # the coarse score's previous design (one block per read-strand and
 # 128-word tile) at the full batch, L2 flushed: NVIDIA H100 80GB HBM3,
 # 700 W, this script
@@ -311,12 +311,16 @@ def full_size(torch, timer, name, what, fn, bound) -> float:
     return cold
 
 
-def build_sweep(kernels, pool) -> dict:
-    """Start the coarse score's build at each tile width of WT_SWEEP;
-    returns {width: future of the library path}."""
-    return {wt: pool.submit(kernels.build, ("coarse_score.cu",),
-                            (f"-DBM_COARSE_WT={wt}",), {})
-            for wt in WT_SWEEP}
+def build_sweep(kernels, pool, variants=None) -> dict:
+    """Start builds of the coarse score's source with extra nvcc flags,
+    {name: flags}, by default at each tile width of WT_SWEEP; returns
+    {name: future of the library path}."""
+    if variants is None:
+        variants = {f"{wt} words": (f"-DBM_COARSE_WT={wt}",)
+                    for wt in WT_SWEEP}
+    return {name: pool.submit(kernels.build, ("coarse_score.cu",),
+                              tuple(flags), {})
+            for name, flags in variants.items()}
 
 
 def coarse_runner(torch, lib, table, rows, bound: int, s: int):
@@ -345,27 +349,27 @@ def coarse_sweep(torch, timer, kernels, sweep, table, rows, bound: int,
                  s: int, shipped_ms: float) -> dict:
     """The coarse score built at each tile width, at the full batch: the
     outputs equal the shipped kernel's, and the device times with the L2
-    flushed, in turns (widths up, then down). Returns {width: [ms, ms]}."""
+    flushed, in turns (widths up, then down). Returns {name: [ms, ms]}."""
     want = tuple(t.clone() for t in
                  coarse_runner(torch, kernels.library(), table, rows, bound,
                                s)())
     runs = {}
-    for wt, fut in sweep.items():
-        runs[wt] = coarse_runner(
+    for name, fut in sweep.items():
+        runs[name] = coarse_runner(
             torch, kernels.bind(ctypes.CDLL(fut.result())), table, rows,
             bound, s)
-        got = runs[wt]()
+        got = runs[name]()
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
-            raise RuntimeError(f"coarse_score at tile width {wt} differs "
-                               f"from the shipped kernel")
+            raise RuntimeError(f"coarse_score at {name} differs from the "
+                               f"shipped kernel")
     del want
-    times = {wt: [] for wt in runs}
-    for wt in list(runs) + list(runs)[::-1]:
-        times[wt].append(timer.ms(runs[wt], reps=5, cold=True))
+    times = {name: [] for name in runs}
+    for name in list(runs) + list(runs)[::-1]:
+        times[name].append(timer.ms(runs[name], reps=5, cold=True))
     log(f"[sweep] coarse_score at the full batch by column-tile width, L2 "
         f"flushed, in turns: " + "; ".join(
-            f"{wt} words {t[0]:.4f}/{t[1]:.4f} ms" for wt, t in times.items())
+            f"{name} {t[0]:.4f}/{t[1]:.4f} ms" for name, t in times.items())
         + f"; shipped (BM_COARSE_WT default) {shipped_ms:.4f} ms; the "
         f"previous design (a block per read-strand and 128-word tile) "
         f"{ROW_TILE_COARSE_MS} ms on an NVIDIA H100 80GB HBM3 at 700 W; "

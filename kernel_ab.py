@@ -13,9 +13,10 @@ libraries must give the same outputs, equal to the plain versions. Each
 kernel is timed on the device (chip_smoke.DeviceTimer) in turns: the
 other tree, this tree, this tree, the other tree. The coarse score runs
 at the full batch with the L2 flushed, and this tree's source is also
-built at each column-tile width of chip_smoke.WT_SWEEP and timed in the
-same turns (the other tree, this tree, the widths up, the widths down,
-this tree, the other tree). Controlled variants of
+built at each column-tile width of chip_smoke.WT_SWEEP, and with the
+extra nvcc flags of each --variant, and timed in the same turns (the
+other tree, this tree, the builds up, the builds down, this tree, the
+other tree). Controlled variants of
 the window rows show what sets the window kernel's pace: the chunk's own
 rows with the L2 flushed and warm, the same rows sorted by table row (no
 scatter), and the first 4096 windows repeated (6 MB, held in the L2);
@@ -57,6 +58,10 @@ def main() -> int:
     ap.add_argument("--parent", required=True,
                     help="another checkout of this repository")
     ap.add_argument("--genome-mbp", type=float, default=1700.0)
+    ap.add_argument("--variant", action="append", default=[],
+                    metavar="NAME=FLAGS",
+                    help="also time this tree's coarse score built with "
+                         "these extra nvcc flags (space-separated)")
     args = ap.parse_args()
 
     import torch
@@ -65,8 +70,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
-    from chip_smoke import (COARSE_ROWS, DeviceTimer, build_sweep, call_ms,
-                            card_name_and_limit, coarse_runner, log)
+    from chip_smoke import (COARSE_ROWS, WT_SWEEP, DeviceTimer, build_sweep,
+                            call_ms, card_name_and_limit, coarse_runner, log)
     from bucketmap_tpu_torch import kernels, world
     from bucketmap_tpu_torch.mapper.pipeline import BucketMapPipeline
     from bucketmap_tpu_torch.ops.coarse import coarse_score_plain
@@ -77,13 +82,17 @@ def main() -> int:
     card = card_name_and_limit()
     log(card)
     dev = torch.device("cuda", 0)
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
-        sweep = build_sweep(kernels, pool)
+    variants = {f"wt{wt}": (f"-DBM_COARSE_WT={wt}",) for wt in WT_SWEEP}
+    for v in args.variant:
+        name, flags = v.split("=", 1)
+        variants[name] = tuple(flags.split())
+    with concurrent.futures.ThreadPoolExecutor(len(variants) + 1) as pool:
+        sweep = build_sweep(kernels, pool, variants)
         parent = pool.submit(lambda: load_kernels(
             os.path.abspath(args.parent), "parent_kernels").library())
         libs = {"this": kernels.library(), "parent": parent.result()}
-        wide = {f"wt{wt}": kernels.bind(ctypes.CDLL(fut.result()))
-                for wt, fut in sweep.items()}
+        wide = {name: kernels.bind(ctypes.CDLL(fut.result()))
+                for name, fut in sweep.items()}
 
     index, fastq, _, world_s = world.bench_world(
         os.path.join(HERE, ".bench_cache"), args.genome_mbp, BATCH)
