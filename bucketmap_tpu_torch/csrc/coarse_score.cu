@@ -13,46 +13,42 @@
 // past `bound` are masked so the all-ones sentinel row adds no phantom
 // buckets (max -1, count 32 for a fully masked word).
 //
-// What bounds it on the H100. At the bench shape (32,768 read-strands x
-// 15 samples x 4 q-grams per batch, a 262,145 x 811-word table) the
-// read-strands gather 1.97 M rows: 6.38 GB, from a 0.85 GB table, so
-// each row is gathered ~7.5 times a batch. The outputs are 0.64 GB. The
-// least traffic is the table once from device memory plus the outputs
-// (~1.5 GB, ~0.45 ms); the gathers themselves can be served by the L2
-// only if the part of the table being gathered from fits in it.
+// What bounds it on the H100: device-memory traffic of scattered row
+// reads. At the bench shape (32,768 read-strands x 15 samples x 4
+// q-grams per batch, a 262,145 x 811-word table) the read-strands gather
+// 1.97 M rows, 6.38 GB, from a 0.85 GB table: each row ~7.5 times a
+// batch. The L2 cannot serve the repeats. It keeps 128 B lines, so any
+// column slice of this row-major table costs at least one line per row,
+// 33.5 MB of a 50 MB L2 that is split in two halves; measured, narrower
+// tiles ran slower, not faster (PERF.md). So every gather reads its
+// sectors from device memory. The rows are 3,244 B apart, not a
+// multiple of the 32 B sector: a row's kWt-word slice spans kWt / 8 +
+// 0.875 sectors on average, so wide tiles waste least. At kWt = 128 the
+// gathers move ~6.8 GB and the outputs 0.64 GB a batch, ~2.2 ms at the
+// card's 3.35 TB/s; the distinct bytes alone (table once, indices,
+// outputs) would take 0.45 ms.
 //
-// Design: a column sweep. The work unit is (a tile of kWt words, a block
-// of read-strands); the grid's linear block id runs over read-strand
-// blocks fastest and column tiles slowest, so every read-strand passes
-// over one column tile before the next tile starts, and the tile's slice
-// of the table (262,145 rows x kWt words) is what the L2 must hold. A
-// group of kWt lanes owns one read-strand, one lane per 32-bucket word.
-// The table's rows are 3,244 B apart, not a multiple of the 32 B sector,
-// so a row's kWt-word slice spans on average 1.875 sectors at kWt = 8,
-// 2.875 at 16 and 4.875 at 32: a slice takes ~15.7, ~24.1 or ~40.9 MB of
-// the L2, and the gathers move ~12.0, ~9.2 or ~7.8 GB a batch from the
-// L2 (table reads from device memory ~1.6, ~1.2 or ~1.0 GB, each tile
-// reading the sectors it shares with its neighbours again). The
-// read-strands in flight cover part of a second tile's slice at a tile
-// boundary, the outputs stream past, and the L2 is split in two halves,
-// so only the narrower tiles can stay resident; kWt is the one that
-// measured fastest (PERF.md). Each thread keeps 16 independent table
-// loads in flight: the group's row indices come in with one coalesced
-// load per 16 gathers (the next batch's while this batch's rows arrive)
-// and go to the lanes by shuffles, so no shared memory caps s. The rows
-// array (7.9 MB a batch) is read once per tile (51 tiles at kWt = 16:
-// ~0.4 GB from the L2). The counters stay in registers: the plane count
-// is a template parameter, 1..8 (s <= 255), picked from n_planes at the
-// launch. Outputs go out with streaming (evict-first) stores so they do
-// not push the table slice out of the L2. An L2 access-policy window
-// cannot name the slice: it is one strided word run per row, not one
-// address range.
+// Design: a column sweep with many loads in flight. The work unit is (a
+// tile of kWt words, a block of read-strands); the grid's linear block
+// id runs over read-strand blocks fastest and column tiles slowest. One
+// warp owns one read-strand at kWt >= 32 (kWt / 32 words per lane,
+// strided by 32 so each load instruction reads one 128 B run of a row);
+// at kWt < 32 a group of kWt lanes does. Each thread keeps 16
+// independent table loads in flight. The row indices come in with one
+// coalesced load per batch (the next batch's while this batch's rows
+// arrive) and go to the lanes by shuffles, so no shared memory caps s.
+// kWt = 128 measured fastest of 8..128 (PERF.md; -DBM_COARSE_WT builds
+// the others for that sweep). The counters stay in registers: the plane
+// count is a template parameter, 1..8 (s <= 255), picked from n_planes
+// at the launch. Outputs go out with streaming (evict-first) stores. At
+// kWt = 32, an L2 evict-last hint on the table loads and plain stores
+// each measured within 1% of this design, so neither is kept.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #ifndef BM_COARSE_WT
-#define BM_COARSE_WT 16
+#define BM_COARSE_WT 128
 #endif
 
 namespace {
@@ -74,28 +70,6 @@ __device__ __forceinline__ uint32_t valid_word_mask(int64_t colbase,
   if (rem >= 32) return 0xFFFFFFFFu;
   if (rem <= 0) return 0u;
   return (1u << rem) - 1u;
-}
-
-__device__ __forceinline__ uint32_t load_word(const uint32_t* p,
-                                              uint64_t policy) {
-#ifdef BM_COARSE_EVICT_LAST
-  uint32_t v;
-  asm volatile("ld.global.nc.L2::cache_hint.u32 %0, [%1], %2;"
-               : "=r"(v) : "l"(p), "l"(policy));
-  return v;
-#else
-  (void)policy;
-  return __ldg(p);
-#endif
-}
-
-template <typename T>
-__device__ __forceinline__ void store_word(T* p, T v) {
-#ifdef BM_COARSE_PLAIN_STORES
-  *p = v;
-#else
-  __stcs(p, v);
-#endif
 }
 
 // this lane's share of the row indices j0 .. j0 + kBatch - 1: index
@@ -132,11 +106,6 @@ coarse_score_kernel(const uint32_t* __restrict__ table, int64_t w,
     const int64_t col = col0 + k * kGroup;
     tcol[k] = table + (col < w ? col : w - 1);
   }
-  uint64_t policy = 0;
-#ifdef BM_COARSE_EVICT_LAST
-  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;"
-               : "=l"(policy));
-#endif
 
   uint32_t pl[kWpl][NP];
   uint32_t acc[kWpl];
@@ -158,7 +127,7 @@ coarse_score_kernel(const uint32_t* __restrict__ table, int64_t w,
                                       b % kGroup, kGroup);
 #pragma unroll
       for (int k = 0; k < kWpl; ++k)
-        v[b][k] = j0 + b < n_idx ? load_word(tcol[k] + row * w, policy)
+        v[b][k] = j0 + b < n_idx ? __ldg(tcol[k] + row * w)
                                  : 0xFFFFFFFFu;
     }
     load_indices(my_rows, j0 + kBatch, n_idx, lane, idx);
@@ -203,11 +172,11 @@ coarse_score_kernel(const uint32_t* __restrict__ table, int64_t w,
       m = m * 2 + nz;
     }
     const int64_t o = r * w + col;
-    store_word(cm + o, vmask == 0u ? -1 : m);
-    store_word(cc + o, vmask == 0u ? 32 : __popc(cand));
+    __stcs(cm + o, vmask == 0u ? -1 : m);
+    __stcs(cc + o, vmask == 0u ? 32 : __popc(cand));
 #pragma unroll
     for (int j = 0; j < NP; ++j)
-      store_word(planes + (r * NP + j) * w + col, pl[k][j]);
+      __stcs(planes + (r * NP + j) * w + col, pl[k][j]);
   }
 }
 
