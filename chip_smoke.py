@@ -86,7 +86,7 @@ INT32_OPS_PER_S = 16.7e12
 L2_FLUSH_BYTES = 256 << 20    # written before a cold launch: > the 50 MB L2
 DP_OPS_PER_CELL = 15          # int ops of one dp_fwd cell's recurrence
 WIDE_S = 32                   # samples per read-strand of the six-plane checks
-WT_SWEEP = (8, 16, 32, 64, 128)   # coarse score column-tile widths (-DBM_COARSE_WT)
+WT_SWEEP = (8, 16, 32, 64, 128)   # coarse score tile widths, -DBM_COARSE_WT
 # the coarse score's previous design (one block per read-strand and
 # 128-word tile) at the full batch, L2 flushed: NVIDIA H100 80GB HBM3,
 # 700 W, this script
@@ -258,15 +258,21 @@ def bound_of(nbytes: int, nops: int):
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
+def compare(torch, kern, plain):
+    """(equal, max_abs_err) of a kernel against its plain version on the
+    same inputs."""
+    got = kern()
+    torch.cuda.synchronize()
+    want = plain()
+    return (all(torch.equal(a, b) for a, b in zip(got, want)),
+            max_abs_err(torch, got, want))
+
+
 def check_kernel(torch, timer, name, src, replaces, kern, plain, shape,
                  bound, launches: int, main_launches: int) -> dict:
     """A kernel against its plain version on the same inputs (exact
     equality), its times and its bound; returns its report entry."""
-    got = kern()
-    torch.cuda.synchronize()
-    want = plain()
-    err = max_abs_err(torch, got, want)
-    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    equal, err = compare(torch, kern, plain)
     cold = timer.ms(kern, cold=True)
     warm = timer.ms(kern)
     call = call_ms(torch, kern)
@@ -289,11 +295,7 @@ def check_kernel(torch, timer, name, src, replaces, kern, plain, shape,
 def check_equal(torch, name, what, kern, plain) -> None:
     """A kernel against its plain version on the same inputs, exactly,
     untimed."""
-    got = kern()
-    torch.cuda.synchronize()
-    want = plain()
-    err = max_abs_err(torch, got, want)
-    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    equal, err = compare(torch, kern, plain)
     log(f"[kernel] {name}: {what}; equal {equal} max_abs_err {err}")
     if not equal:
         raise RuntimeError(f"{name} disagrees with its plain version ({what})")
@@ -311,16 +313,16 @@ def full_size(torch, timer, name, what, fn, bound) -> float:
     return cold
 
 
-def build_sweep(kernels, pool, variants=None) -> dict:
-    """Start builds of the coarse score's source with extra nvcc flags,
-    {name: flags}, by default at each tile width of WT_SWEEP; returns
-    {name: future of the library path}."""
-    if variants is None:
-        variants = {f"{wt} words": (f"-DBM_COARSE_WT={wt}",)
-                    for wt in WT_SWEEP}
-    return {name: pool.submit(kernels.build, ("coarse_score.cu",),
-                              tuple(flags), {})
-            for name, flags in variants.items()}
+def build_with_sweep(kernels) -> dict:
+    """Build the kernel library and, at the same time, the coarse score's
+    source at each tile width of WT_SWEEP (one nvcc per source, all
+    started together); returns {name: library path} of the sweep."""
+    with concurrent.futures.ThreadPoolExecutor(len(WT_SWEEP)) as pool:
+        futs = {f"{wt} words": pool.submit(kernels.build, ("coarse_score.cu",),
+                                           (f"-DBM_COARSE_WT={wt}",), {})
+                for wt in WT_SWEEP}
+        kernels.library()
+        return {name: fut.result() for name, fut in futs.items()}
 
 
 def coarse_runner(torch, lib, table, rows, bound: int, s: int):
@@ -354,10 +356,9 @@ def coarse_sweep(torch, timer, kernels, sweep, table, rows, bound: int,
                  coarse_runner(torch, kernels.library(), table, rows, bound,
                                s)())
     runs = {}
-    for name, fut in sweep.items():
-        runs[name] = coarse_runner(
-            torch, kernels.bind(ctypes.CDLL(fut.result())), table, rows,
-            bound, s)
+    for name, path in sweep.items():
+        runs[name] = coarse_runner(torch, kernels.bind(ctypes.CDLL(path)),
+                                   table, rows, bound, s)
         got = runs[name]()
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
@@ -715,20 +716,15 @@ def main() -> int:
 
     # ---- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
-    pool = concurrent.futures.ThreadPoolExecutor(len(WT_SWEEP))
-    sweep = build_sweep(kernels, pool)
-    kernels.library()
+    sweep = build_with_sweep(kernels)
     regs = [ln.strip() for ln in kernels.BUILD_INFO.get("log", "").splitlines()
             if "registers" in ln]
     log(f"[build] {len(kernels.SOURCES)} CUDA sources -> "
-        f"{kernels.BUILD_INFO['path']} in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {kernels.BUILD_INFO['seconds']:.2f} s, sm_90a); ptxas: "
+        f"{kernels.BUILD_INFO['path']} (nvcc "
+        f"{kernels.BUILD_INFO['seconds']:.2f} s, sm_90a), and coarse_score "
+        f"at column-tile widths {WT_SWEEP}, in "
+        f"{time.perf_counter() - t0:.2f} s; ptxas: "
         f"{'; '.join(sorted(set(regs)))}")
-    for wt, fut in sweep.items():
-        fut.result()
-    pool.shutdown()
-    log(f"[build] coarse_score at column-tile widths {WT_SWEEP} built "
-        f"{time.perf_counter() - t0:.2f} s after the start")
     from bucketmap_tpu_torch.io import native
     t0 = time.perf_counter()
     if not native.available():

@@ -13,10 +13,9 @@ libraries must give the same outputs, equal to the plain versions. Each
 kernel is timed on the device (chip_smoke.DeviceTimer) in turns: the
 other tree, this tree, this tree, the other tree. The coarse score runs
 at the full batch with the L2 flushed, and this tree's source is also
-built at each column-tile width of chip_smoke.WT_SWEEP, and with the
-extra nvcc flags of each --variant, and timed in the same turns (the
-other tree, this tree, the builds up, the builds down, this tree, the
-other tree). Controlled variants of
+built at each column-tile width of chip_smoke.WT_SWEEP and timed in the
+same turns (the other tree, this tree, the widths up, the widths down,
+this tree, the other tree). Controlled variants of
 the window rows show what sets the window kernel's pace: the chunk's own
 rows with the L2 flushed and warm, the same rows sorted by table row (no
 scatter), and the first 4096 windows repeated (6 MB, held in the L2);
@@ -58,10 +57,6 @@ def main() -> int:
     ap.add_argument("--parent", required=True,
                     help="another checkout of this repository")
     ap.add_argument("--genome-mbp", type=float, default=1700.0)
-    ap.add_argument("--variant", action="append", default=[],
-                    metavar="NAME=FLAGS",
-                    help="also time this tree's coarse score built with "
-                         "these extra nvcc flags (space-separated)")
     args = ap.parse_args()
 
     import torch
@@ -70,7 +65,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
-    from chip_smoke import (COARSE_ROWS, WT_SWEEP, DeviceTimer, build_sweep,
+    from chip_smoke import (COARSE_ROWS, DeviceTimer, build_with_sweep,
                             call_ms, card_name_and_limit, coarse_runner, log)
     from bucketmap_tpu_torch import kernels, world
     from bucketmap_tpu_torch.mapper.pipeline import BucketMapPipeline
@@ -82,17 +77,12 @@ def main() -> int:
     card = card_name_and_limit()
     log(card)
     dev = torch.device("cuda", 0)
-    variants = {f"wt{wt}": (f"-DBM_COARSE_WT={wt}",) for wt in WT_SWEEP}
-    for v in args.variant:
-        name, flags = v.split("=", 1)
-        variants[name] = tuple(flags.split())
-    with concurrent.futures.ThreadPoolExecutor(len(variants) + 1) as pool:
-        sweep = build_sweep(kernels, pool, variants)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
         parent = pool.submit(lambda: load_kernels(
             os.path.abspath(args.parent), "parent_kernels").library())
+        wide = {name: kernels.bind(ctypes.CDLL(path))
+                for name, path in build_with_sweep(kernels).items()}
         libs = {"this": kernels.library(), "parent": parent.result()}
-        wide = {name: kernels.bind(ctypes.CDLL(fut.result()))
-                for name, fut in sweep.items()}
 
     index, fastq, _, world_s = world.bench_world(
         os.path.join(HERE, ".bench_cache"), args.genome_mbp, BATCH)
