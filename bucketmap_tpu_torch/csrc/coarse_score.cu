@@ -13,56 +13,47 @@
 // past `bound` are masked so the all-ones sentinel row adds no phantom
 // buckets (max -1, count 32 for a fully masked word).
 //
-// What bounds it on the H100: device-memory traffic of scattered row
-// reads. At the bench shape (32,768 read-strands x 15 samples x 4
-// q-grams per batch, a 262,145 x 811-word table) the read-strands gather
-// 1.97 M rows, 6.38 GB, from a 0.85 GB table: each row ~7.5 times a
-// batch. The L2 cannot serve the repeats. It keeps 128 B lines, so any
-// column slice of this row-major table costs at least one line per row,
-// 33.5 MB of a 50 MB L2 that is split in two halves; measured, narrower
-// tiles ran slower, not faster (PERF.md). So every gather reads its
-// sectors from device memory. The rows are 3,244 B apart, not a
-// multiple of the 32 B sector: a row's kWt-word slice spans kWt / 8 +
-// 0.875 sectors on average, so wide tiles waste least. At kWt = 128 the
-// gathers move ~6.8 GB and the outputs 0.64 GB a batch, ~2.2 ms at the
-// card's 3.35 TB/s; the distinct bytes alone (table once, indices,
-// outputs) would take 0.45 ms.
+// What bounds it on the H100 (a model, not a trace): at the bench shape
+// (32,768 read-strands x 15 samples x 4 q-grams per batch, a 262,145 x
+// 811-word table) the read-strands gather 1.97 M rows, 6.38 GB, from a
+// 0.85 GB table: each row ~7.5 times a batch. The rows are 3,244 B
+// apart, not a multiple of the 32 B sector, so a row's kWt-word slice
+// spans kWt / 8 + 0.875 sectors on average: at kWt = 128 the gathers
+// move an estimated ~6.8 GB of sectors and the outputs 0.64 GB a batch,
+// ~2.2 ms at the card's 3.35 TB/s if every sector came from device
+// memory; the distinct bytes alone (table once, indices, outputs) would
+// take 0.45 ms. Whether the L2 serves part of the repeats has not been
+// measured (no hardware counters on the machines this ran on); a column
+// slice of this row-major table needs at least one 128 B line per row,
+// 33.5 MB of a 50 MB L2 split in two halves, and narrower tiles measured
+// slower, not faster (PERF.md).
 //
 // Design: a column sweep with many loads in flight. The work unit is (a
-// tile of kWt words, a block of read-strands); the grid's linear block
-// id runs over read-strand blocks fastest and column tiles slowest. One
-// warp owns one read-strand at kWt >= 32 (kWt / 32 words per lane,
-// strided by 32 so each load instruction reads one 128 B run of a row);
-// at kWt < 32 a group of kWt lanes does. Each thread keeps 16
-// independent table loads in flight. The row indices come in with one
-// coalesced load per batch (the next batch's while this batch's rows
-// arrive) and go to the lanes by shuffles, so no shared memory caps s.
-// kWt = 128 measured fastest of 8..128 (PERF.md; -DBM_COARSE_WT builds
-// the others for that sweep). The counters stay in registers: the plane
-// count is a template parameter, 1..8 (s <= 255), picked from n_planes
-// at the launch. Outputs go out with streaming (evict-first) stores. At
-// kWt = 32, an L2 evict-last hint on the table loads and plain stores
-// each measured within 1% of this design, so neither is kept.
+// tile of kWt = 128 words, a block of 8 read-strands); the grid's linear
+// block id runs over read-strand blocks fastest and column tiles
+// slowest. One warp owns one read-strand: 4 words per lane, strided by
+// 32 so each load instruction reads one 128 B run of a row. Each thread
+// keeps 16 independent table loads in flight (4 rows x 4 words). The
+// row indices come in with one coalesced load per batch of 4 rows (the
+// next batch's while this batch's rows arrive) and go to the lanes by
+// shuffles, so no shared memory caps s. 128 words measured fastest of
+// 8..128 (PERF.md). The counters stay in registers: the plane count is a
+// template parameter, 1..8 (s <= 255), picked from n_planes at the
+// launch. Outputs go out with streaming (evict-first) stores. At 32
+// words, an L2 evict-last hint on the table loads and plain stores each
+// measured within 1% of this design, so neither is kept.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#ifndef BM_COARSE_WT
-#define BM_COARSE_WT 128
-#endif
-
 namespace {
 
-constexpr int kWt = BM_COARSE_WT;   // words per column tile
-static_assert(kWt == 8 || kWt == 16 || kWt == 32 || kWt == 64 || kWt == 128,
-              "kWt is 8, 16, 32, 64 or 128");
-constexpr int kWpl = kWt > 32 ? kWt / 32 : 1;   // words per lane
-constexpr int kGroup = kWt / kWpl;              // lanes per read-strand
+constexpr int kWt = 128;                  // words per column tile
+constexpr int kWpl = kWt / 32;            // words per lane
 constexpr int kThreads = 256;
-constexpr int kStrands = kThreads / kGroup;     // read-strands per block
-constexpr int kBatch = 16 / kWpl;               // rows per batch: 16 loads
-constexpr int kIdxRegs = (kBatch + kGroup - 1) / kGroup;
-constexpr int kMaxNq = 16;                      // k <= 16
+constexpr int kStrands = kThreads / 32;   // read-strands per block
+constexpr int kBatch = 16 / kWpl;         // rows per batch: 16 loads in flight
+constexpr int kMaxNq = 16;                // k <= 16
 
 __device__ __forceinline__ uint32_t valid_word_mask(int64_t colbase,
                                                     int32_t bound) {
@@ -72,16 +63,10 @@ __device__ __forceinline__ uint32_t valid_word_mask(int64_t colbase,
   return (1u << rem) - 1u;
 }
 
-// this lane's share of the row indices j0 .. j0 + kBatch - 1: index
-// j0 + lane + m * kGroup in idx[m]
-__device__ __forceinline__ void load_indices(const int32_t* my_rows, int j0,
-                                             int n_idx, int lane,
-                                             int32_t (&idx)[kIdxRegs]) {
-#pragma unroll
-  for (int m = 0; m < kIdxRegs; ++m) {
-    const int b = lane + m * kGroup;
-    idx[m] = (b < kBatch && j0 + b < n_idx) ? __ldg(my_rows + j0 + b) : 0;
-  }
+// lane b < kBatch holds row index j0 + b
+__device__ __forceinline__ int32_t load_index(const int32_t* my_rows, int j0,
+                                              int n_idx, int lane) {
+  return (lane < kBatch && j0 + lane < n_idx) ? __ldg(my_rows + j0 + lane) : 0;
 }
 
 template <int NP>
@@ -90,20 +75,20 @@ coarse_score_kernel(const uint32_t* __restrict__ table, int64_t w,
                     const int32_t* __restrict__ rows, int64_t b2, int s,
                     int nq, int32_t bound, int32_t* __restrict__ cm,
                     int32_t* __restrict__ cc, uint32_t* __restrict__ planes) {
-  const int lane = threadIdx.x % kGroup;
+  const int lane = threadIdx.x % 32;
   const int64_t r_in = static_cast<int64_t>(blockIdx.x) * kStrands +
-                       threadIdx.x / kGroup;
+                       threadIdx.x / 32;
   // every lane runs the whole loop (the shuffles take the full warp);
   // lanes past the last read-strand or word load in range, store nothing
   const int64_t r = r_in < b2 ? r_in : b2 - 1;
   const int n_idx = s * nq;
   const int32_t* my_rows = rows + r * n_idx;
-  // lane's words: col0 + k * kGroup, so a warp's load is one run per row
+  // lane's words: col0 + 32 k, so a warp's load is one run per row
   const int64_t col0 = static_cast<int64_t>(blockIdx.y) * kWt + lane;
   const uint32_t* tcol[kWpl];
 #pragma unroll
   for (int k = 0; k < kWpl; ++k) {
-    const int64_t col = col0 + k * kGroup;
+    const int64_t col = col0 + k * 32;
     tcol[k] = table + (col < w ? col : w - 1);
   }
 
@@ -117,20 +102,18 @@ coarse_score_kernel(const uint32_t* __restrict__ table, int64_t w,
   }
   int qc = 0;
 
-  int32_t idx[kIdxRegs];
-  load_indices(my_rows, 0, n_idx, lane, idx);
+  int32_t idx = load_index(my_rows, 0, n_idx, lane);
   for (int j0 = 0; j0 < n_idx; j0 += kBatch) {
     uint32_t v[kBatch][kWpl];
 #pragma unroll
     for (int b = 0; b < kBatch; ++b) {
-      const int64_t row = __shfl_sync(0xFFFFFFFFu, idx[b / kGroup],
-                                      b % kGroup, kGroup);
+      const int64_t row = __shfl_sync(0xFFFFFFFFu, idx, b);
 #pragma unroll
       for (int k = 0; k < kWpl; ++k)
         v[b][k] = j0 + b < n_idx ? __ldg(tcol[k] + row * w)
                                  : 0xFFFFFFFFu;
     }
-    load_indices(my_rows, j0 + kBatch, n_idx, lane, idx);
+    idx = load_index(my_rows, j0 + kBatch, n_idx, lane);
 #pragma unroll
     for (int b = 0; b < kBatch; ++b) {
       if (j0 + b < n_idx) {
@@ -157,7 +140,7 @@ coarse_score_kernel(const uint32_t* __restrict__ table, int64_t w,
 
 #pragma unroll
   for (int k = 0; k < kWpl; ++k) {
-    const int64_t col = col0 + k * kGroup;
+    const int64_t col = col0 + k * 32;
     if (col >= w) break;
     // bitwise max over the packed counters: scan planes high to low,
     // narrowing the candidate set to buckets that have each max bit

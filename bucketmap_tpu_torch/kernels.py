@@ -58,27 +58,23 @@ def nvcc() -> str | None:
     return None
 
 
-def source_hash(sources=SOURCES, flags=()) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(flags)).encode())
-    for name in sources:
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     return h.hexdigest()[:16]
 
 
-def build(sources=SOURCES, flags=(), info: dict = BUILD_INFO) -> str:
-    """Compile `sources` with NVCC_FLAGS plus `flags` unless this exact
-    build exists; returns the library path and records its path, seconds
-    and compiler log in `info`. A measurement passes `flags` to build a
-    kernel at another value of a compile-time constant (-D); the port's
-    own library is the default build. Raises with nvcc's output when
-    compilation fails."""
-    out_dir = os.path.join(CSRC, "build", source_hash(sources, flags))
+def build() -> str:
+    """Compile the sources unless this exact build exists; returns the
+    library path. Raises with nvcc's output when compilation fails."""
+    out_dir = os.path.join(CSRC, "build", source_hash())
     so = os.path.join(out_dir, "libbmtorch_kernels.so")
     if os.path.exists(so):
-        info.setdefault("seconds", 0.0)
-        info.setdefault("log", "")
-        info["path"] = so
+        BUILD_INFO.setdefault("seconds", 0.0)
+        BUILD_INFO.setdefault("log", "")
+        BUILD_INFO["path"] = so
         return so
     os.makedirs(out_dir, exist_ok=True)
     compiler = nvcc()
@@ -87,10 +83,10 @@ def build(sources=SOURCES, flags=(), info: dict = BUILD_INFO) -> str:
                            "toolkit")
     t0 = time.perf_counter()
     objs, procs = [], []
-    for name in sources:
+    for name in SOURCES:
         obj = os.path.join(out_dir, f"{name}.{os.getpid()}.o")
-        cmd = [compiler, *NVCC_FLAGS, *flags, "-c", os.path.join(CSRC, name),
-               "-o", obj]
+        cmd = [compiler, *NVCC_FLAGS, "-c", os.path.join(CSRC, name), "-o",
+               obj]
         objs.append(obj)
         procs.append((cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -113,30 +109,9 @@ def build(sources=SOURCES, flags=(), info: dict = BUILD_INFO) -> str:
     os.replace(tmp, so)
     for obj in objs:
         os.remove(obj)
-    info.update(seconds=time.perf_counter() - t0,
-                log="".join(log) + res.stdout + res.stderr, path=so)
+    BUILD_INFO.update(seconds=time.perf_counter() - t0,
+                      log="".join(log) + res.stdout + res.stderr, path=so)
     return so
-
-
-def bind(lib):
-    """Give the kernel entry points that `lib` has their ctypes argument
-    and result types; returns lib."""
-    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    argtypes = {
-        "bm_coarse_score": [p, i64, p, i64, i32, i32, i32, ctypes.c_int32, p,
-                            p, p, p],
-        "bm_fine_window": [p, i64, p, p, p, p, i64, i32, i32, p, p],
-        "bm_tally": [p, p, i64, i32, i32, i32, i32, i32, p, p, p, p],
-        "bm_dp_fwd": [p, p, p, p, i64, i32, i32, i32, i32, p, p, p],
-        "bm_presence_gather": [p, i64, p, i64, i32, p, p],
-        "bm_chunk_scan": [p, i64, i32, i64, i32, ctypes.c_int32, p, p, p, p],
-    }
-    for name, args in argtypes.items():
-        if hasattr(lib, name):
-            fn = getattr(lib, name)
-            fn.argtypes = args
-            fn.restype = i32
-    return lib
 
 
 def library():
@@ -144,7 +119,26 @@ def library():
     global _lib
     with _lock:
         if _lib is None:
-            _lib = bind(ctypes.CDLL(build()))
+            lib = ctypes.CDLL(build())
+            p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+            lib.bm_coarse_score.argtypes = [p, i64, p, i64, i32, i32, i32,
+                                            ctypes.c_int32, p, p, p, p]
+            lib.bm_coarse_score.restype = i32
+            lib.bm_fine_window.argtypes = [p, i64, p, p, p, p, i64, i32, i32,
+                                           p, p]
+            lib.bm_fine_window.restype = i32
+            lib.bm_tally.argtypes = [p, p, i64, i32, i32, i32, i32, i32, p, p,
+                                     p, p]
+            lib.bm_tally.restype = i32
+            lib.bm_dp_fwd.argtypes = [p, p, p, p, i64, i32, i32, i32, i32, p,
+                                      p, p]
+            lib.bm_dp_fwd.restype = i32
+            lib.bm_presence_gather.argtypes = [p, i64, p, i64, i32, p, p]
+            lib.bm_presence_gather.restype = i32
+            lib.bm_chunk_scan.argtypes = [p, i64, i32, i64, i32,
+                                          ctypes.c_int32, p, p, p, p]
+            lib.bm_chunk_scan.restype = i32
+            _lib = lib
         return _lib
 
 

@@ -8,9 +8,8 @@ Phases, each reported on its own line:
      CUDA versions, whether nvcc and triton are present; exits non-zero
      without a CUDA device;
   2. build: the six CUDA kernels from bucketmap_tpu_torch/csrc, one
-     nvcc for sm_90a per source, all started together with the coarse
-     score's column-tile sweep builds (its source at each tile width of
-     WT_SWEEP), and the C++ host library from csrc/host with g++;
+     nvcc for sm_90a per source, all started together, and the C++ host
+     library from csrc/host with g++;
   3. world: the bench world (bench.py's seeded repeat genome, index and
      simulated 300 bp reads), cached under .bench_cache/;
   4. main path: BucketMapPipeline(..., device="cuda").map_fastq over all
@@ -23,8 +22,7 @@ Phases, each reported on its own line:
      an idle device, its bound from this run's inputs and its share of
      it; the coarse score also at 32 samples per read-strand (six bit
      planes, the batch's sample rows regrouped), and at the full batch
-     for each tile width of the sweep, in turns, beside the previous
-     design's time;
+     (exact against its plain version, and its device time and bound);
   6. align mode: BucketMapPipeline(..., align=True).map_fastq over the
      same reads, DP sub-batches of 16384 pairs; checks accuracy, CIGAR
      lengths and that the DP kernel and every map-stage kernel launched;
@@ -59,8 +57,6 @@ JSON result.
 from __future__ import annotations
 
 import argparse
-import concurrent.futures
-import ctypes
 import filecmp
 import gc
 import importlib.util
@@ -86,11 +82,6 @@ INT32_OPS_PER_S = 16.7e12
 L2_FLUSH_BYTES = 256 << 20    # written before a cold launch: > the 50 MB L2
 DP_OPS_PER_CELL = 15          # int ops of one dp_fwd cell's recurrence
 WIDE_S = 32                   # samples per read-strand of the six-plane checks
-WT_SWEEP = (8, 16, 32, 64, 128)   # coarse score tile widths, -DBM_COARSE_WT
-# the coarse score's previous design (one block per read-strand and
-# 128-word tile) at the full batch, L2 flushed: NVIDIA H100 80GB HBM3,
-# 700 W, this script
-ROW_TILE_COARSE_MS = 3.4972
 
 
 def log(msg: str) -> None:
@@ -301,81 +292,14 @@ def check_equal(torch, name, what, kern, plain) -> None:
         raise RuntimeError(f"{name} disagrees with its plain version ({what})")
 
 
-def full_size(torch, timer, name, what, fn, bound) -> float:
-    """Log a kernel's device time at a full batch beside its bound;
-    returns the time."""
+def full_size(torch, timer, name, what, fn, bound) -> None:
+    """Log a kernel's device time at a full batch beside its bound."""
     cold = timer.ms(fn, reps=5, cold=True)
     bound_ms, bound_by = bound_of(*bound)
     log(f"[kernel] {name} at {what}: device {cold:.4f} ms with the L2 "
         f"flushed; bound {bound_ms:.4f} ms by {bound_by} "
         f"({bound[0] / 1e9:.3f} GB, {bound[1] / 1e9:.3f} G int ops), share "
         f"{bound_ms / cold:.3f}")
-    return cold
-
-
-def build_with_sweep(kernels) -> dict:
-    """Build the kernel library and, at the same time, the coarse score's
-    source at each tile width of WT_SWEEP (one nvcc per source, all
-    started together); returns {name: library path} of the sweep."""
-    with concurrent.futures.ThreadPoolExecutor(len(WT_SWEEP)) as pool:
-        futs = {f"{wt} words": pool.submit(kernels.build, ("coarse_score.cu",),
-                                           (f"-DBM_COARSE_WT={wt}",), {})
-                for wt in WT_SWEEP}
-        kernels.library()
-        return {name: fut.result() for name, fut in futs.items()}
-
-
-def coarse_runner(torch, lib, table, rows, bound: int, s: int):
-    """A call of one library's bm_coarse_score on these inputs, into
-    outputs allocated once (the wrapper's shapes)."""
-    R, nq = rows.shape
-    B2, w = R // s, table.shape[1]
-    n_planes = s.bit_length()
-    dev = table.device
-    outs = (torch.empty((B2, w), dtype=torch.int32, device=dev),
-            torch.empty((B2, w), dtype=torch.int32, device=dev),
-            torch.empty((B2, n_planes, w), dtype=torch.int32, device=dev))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-
-    def run():
-        err = lib.bm_coarse_score(
-            table.data_ptr(), w, rows.data_ptr(), B2, s, nq, n_planes,
-            int(bound), *(o.data_ptr() for o in outs), stream)
-        if err:
-            raise RuntimeError(f"bm_coarse_score: cudaError {err}")
-        return outs
-    return run
-
-
-def coarse_sweep(torch, timer, kernels, sweep, table, rows, bound: int,
-                 s: int, shipped_ms: float) -> dict:
-    """The coarse score built at each tile width, at the full batch: the
-    outputs equal the shipped kernel's, and the device times with the L2
-    flushed, in turns (widths up, then down). Returns {name: [ms, ms]}."""
-    want = tuple(t.clone() for t in
-                 coarse_runner(torch, kernels.library(), table, rows, bound,
-                               s)())
-    runs = {}
-    for name, path in sweep.items():
-        runs[name] = coarse_runner(torch, kernels.bind(ctypes.CDLL(path)),
-                                   table, rows, bound, s)
-        got = runs[name]()
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(got, want)):
-            raise RuntimeError(f"coarse_score at {name} differs from the "
-                               f"shipped kernel")
-    del want
-    times = {name: [] for name in runs}
-    for name in list(runs) + list(runs)[::-1]:
-        times[name].append(timer.ms(runs[name], reps=5, cold=True))
-    log(f"[sweep] coarse_score at the full batch by column-tile width, L2 "
-        f"flushed, in turns: " + "; ".join(
-            f"{name} {t[0]:.4f}/{t[1]:.4f} ms" for name, t in times.items())
-        + f"; shipped (BM_COARSE_WT default) {shipped_ms:.4f} ms; the "
-        f"previous design (a block per read-strand and 128-word tile) "
-        f"{ROW_TILE_COARSE_MS} ms on an NVIDIA H100 80GB HBM3 at 700 W; "
-        f"card {card_name_and_limit()}")
-    return times
 
 
 def check_cigars(sam_path: str):
@@ -716,14 +640,12 @@ def main() -> int:
 
     # ---- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
-    sweep = build_with_sweep(kernels)
+    kernels.library()
     regs = [ln.strip() for ln in kernels.BUILD_INFO.get("log", "").splitlines()
             if "registers" in ln]
     log(f"[build] {len(kernels.SOURCES)} CUDA sources -> "
-        f"{kernels.BUILD_INFO['path']} (nvcc "
-        f"{kernels.BUILD_INFO['seconds']:.2f} s, sm_90a), and coarse_score "
-        f"at column-tile widths {WT_SWEEP}, in "
-        f"{time.perf_counter() - t0:.2f} s; ptxas: "
+        f"{kernels.BUILD_INFO['path']} in {time.perf_counter() - t0:.2f} s "
+        f"(nvcc {kernels.BUILD_INFO['seconds']:.2f} s, sm_90a); ptxas: "
         f"{'; '.join(sorted(set(regs)))}")
     from bucketmap_tpu_torch.io import native
     t0 = time.perf_counter()
@@ -829,13 +751,18 @@ def main() -> int:
                 lambda: coarse_score_plain(table, wide, index.n_buckets,
                                            WIDE_S))
     del wide
-    shipped_ms = full_size(
-        torch, timer, "coarse_score",
-        f"the full batch ({rows_all.shape[0] // s} read-strands)",
-        lambda: coarse_score(table, rows_all, index.n_buckets, s),
-        coarse_bound(torch, table, rows_all, s))
-    coarse_sweep(torch, timer, kernels, sweep, table, rows_all,
-                 index.n_buckets, s, shipped_ms)
+    check_equal(torch, "coarse_score", f"the full batch "
+                f"({rows_all.shape[0] // s} read-strands x {s} samples x "
+                f"{table.shape[1]} words)",
+                lambda: coarse_score(table, rows_all, index.n_buckets, s),
+                lambda: coarse_score_plain(table, rows_all, index.n_buckets,
+                                           s))
+    gc.collect()
+    torch.cuda.empty_cache()
+    full_size(torch, timer, "coarse_score",
+              f"the full batch ({rows_all.shape[0] // s} read-strands)",
+              lambda: coarse_score(table, rows_all, index.n_buckets, s),
+              coarse_bound(torch, table, rows_all, s))
     # the single-device step's vector of this batch, for phase 8
     vec_single = dm.step_packed(packed).cpu()
     del cases, pipe, dm, table, c, q_ok, lens, both, rows

@@ -12,10 +12,10 @@ read-strands), and the first 4096-lane vote chunk of that batch. Both
 libraries must give the same outputs, equal to the plain versions. Each
 kernel is timed on the device (chip_smoke.DeviceTimer) in turns: the
 other tree, this tree, this tree, the other tree. The coarse score runs
-at the full batch with the L2 flushed, and this tree's source is also
-built at each column-tile width of chip_smoke.WT_SWEEP and timed in the
-same turns (the other tree, this tree, the widths up, the widths down,
-this tree, the other tree). Controlled variants of
+at the full batch with the L2 flushed, on the batch's own rows and on
+the same rows folded into the table's first 8,192 rows (26.6 MB, held
+in the L2 after their first gathers), which times the kernel when the
+L2 serves its repeated gathers. Controlled variants of
 the window rows show what sets the window kernel's pace: the chunk's own
 rows with the L2 flushed and warm, the same rows sorted by table row (no
 scatter), and the first 4096 windows repeated (6 MB, held in the L2);
@@ -31,8 +31,6 @@ kernels. The last line of the output is one JSON object.
 from __future__ import annotations
 
 import argparse
-import concurrent.futures
-import ctypes
 import importlib.util
 import json
 import os
@@ -41,6 +39,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BATCH = 16384
+L2_ROWS = 8192        # table rows of the coarse score's L2-resident variant
 
 
 def load_kernels(tree: str, name: str):
@@ -50,6 +49,28 @@ def load_kernels(tree: str, name: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def coarse_runner(torch, lib, table, rows, bound: int, s: int):
+    """A call of one library's bm_coarse_score on these inputs, into
+    outputs allocated once (the wrapper's shapes)."""
+    R, nq = rows.shape
+    B2, w = R // s, table.shape[1]
+    n_planes = s.bit_length()
+    dev = table.device
+    outs = (torch.empty((B2, w), dtype=torch.int32, device=dev),
+            torch.empty((B2, w), dtype=torch.int32, device=dev),
+            torch.empty((B2, n_planes, w), dtype=torch.int32, device=dev))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def run():
+        err = lib.bm_coarse_score(
+            table.data_ptr(), w, rows.data_ptr(), B2, s, nq, n_planes,
+            int(bound), *(o.data_ptr() for o in outs), stream)
+        if err:
+            raise RuntimeError(f"bm_coarse_score: cudaError {err}")
+        return outs
+    return run
 
 
 def main() -> int:
@@ -65,8 +86,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
-    from chip_smoke import (COARSE_ROWS, DeviceTimer, build_with_sweep,
-                            call_ms, card_name_and_limit, coarse_runner, log)
+    from chip_smoke import DeviceTimer, call_ms, card_name_and_limit, log
     from bucketmap_tpu_torch import kernels, world
     from bucketmap_tpu_torch.mapper.pipeline import BucketMapPipeline
     from bucketmap_tpu_torch.ops.coarse import coarse_score_plain
@@ -77,12 +97,9 @@ def main() -> int:
     card = card_name_and_limit()
     log(card)
     dev = torch.device("cuda", 0)
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        parent = pool.submit(lambda: load_kernels(
-            os.path.abspath(args.parent), "parent_kernels").library())
-        wide = {name: kernels.bind(ctypes.CDLL(path))
-                for name, path in build_with_sweep(kernels).items()}
-        libs = {"this": kernels.library(), "parent": parent.result()}
+    libs = {"this": kernels.library(),
+            "parent": load_kernels(os.path.abspath(args.parent),
+                                   "parent_kernels").library()}
 
     index, fastq, _, world_s = world.bench_world(
         os.path.join(HERE, ".bench_cache"), args.genome_mbp, BATCH)
@@ -141,34 +158,32 @@ def main() -> int:
     timer = DeviceTimer(torch, dev)
     result = {"card": card, "windows": int(wargs[1].shape[0]), "pairs": P}
 
-    # the coarse score at the full batch, L2 flushed
+    # the coarse score at the full batch, L2 flushed: the batch's rows,
+    # and the same rows folded into L2_ROWS table rows
     s, n, table = cfg.mapper_samples, index.n_buckets, dm.coarse.qgram_words
-    coarse = {side: coarse_runner(torch, lib, table, rows_all, n, s)
-              for side, lib in {**libs, **wide}.items()}
-    few = rows_all[: COARSE_ROWS * s].contiguous()
-    want = coarse_score_plain(table, few, n, s)
-    got = coarse_runner(torch, libs["this"], table, few, n, s)()
-    ref = tuple(t.clone() for t in coarse["parent"]())
-    for side, run in coarse.items():
-        outs = run()
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(outs, ref)):
-            raise RuntimeError(f"coarse_score ({side}) differs from the "
-                               f"other tree's")
-    if not all(torch.equal(a, b) for a, b in zip(got, want)):
-        raise RuntimeError("coarse_score disagrees with its plain version")
-    del few, want, got, ref
-    widths = list(wide)
-    order = ["parent", "this", *widths, *widths[::-1], "this", "parent"]
-    times = {side: [] for side in coarse}
-    for side in order:
-        times[side].append(timer.ms(coarse[side], reps=5, cold=True))
-    result["coarse_score"] = {"read_strands": rows_all.shape[0] // s,
-                              "full_batch_cold": times}
-    log(f"[coarse_score] {rows_all.shape[0] // s} read-strands x {s} samples "
-        f"x {table.shape[1]} words, L2 flushed, in turns {order}: device ms "
-        + "; ".join(f"{side} {t}" for side, t in times.items()))
-    del coarse
+    res = {"read_strands": rows_all.shape[0] // s}
+    for cname, rows in (("batch", rows_all), ("l2_resident",
+                                              rows_all % L2_ROWS)):
+        runs = {side: coarse_runner(torch, lib, table, rows, n, s)
+                for side, lib in libs.items()}
+        want = coarse_score_plain(table, rows, n, s)
+        for side, run in runs.items():
+            got = run()
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise RuntimeError(f"coarse_score ({side}, {cname}) "
+                                   f"disagrees with its plain version")
+        del want, got
+        torch.cuda.empty_cache()
+        times = {side: [] for side in runs}
+        for side in ("parent", "this", "this", "parent"):
+            times[side].append(timer.ms(runs[side], reps=5, cold=True))
+        res[f"{cname}_cold"] = times
+        log(f"[coarse_score] {cname}, {rows.shape[0] // s} read-strands x "
+            f"{s} samples x {table.shape[1]} words, L2 flushed: device ms "
+            f"this tree {times['this']}, other tree {times['parent']}")
+        del runs
+    result["coarse_score"] = res
 
     ftf, frow = wargs[0], wargs[1]
     order = torch.argsort(frow.to(torch.int64).clamp(0, ftf.shape[0] - 3))
