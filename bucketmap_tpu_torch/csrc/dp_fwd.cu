@@ -1,60 +1,188 @@
-// Forward banded semi-global edit DP of the align stage.
+// Forward banded semi-global edit DP of the align stage, and the same DP
+// with the run-jump traceback and the per-row run-length encoding fused
+// behind it.
 //
 // Replaces bucketmap_tpu/ops/align.py:_dp_fwd_pallas (the Pallas kernel
 // that runs the forward pass of the banded aligner on VMEM-resident
-// wavefronts, 128 pairs per block, band on sublanes).
+// wavefronts, 128 pairs per block, band on sublanes) and, in bm_dp_runs,
+// the run-jump traceback and per-row RLE that follow it there
+// (_align_core(tb_mode="runs") and the first half of _align_runs_impl).
 //
-// What it computes, per pair: rows i = 1..Q of the query against a
+// What the DP computes, per pair: rows i = 1..Q of the query against a
 // band of `band` diagonals d, cell (i, d) at text column j = i + d - lo.
 // Match 0, mismatch and gaps -1, free text end gaps (row 0 is 0 on
 // 0 <= j <= width). diag = prev[d] + sub, up = prev[d+1] - 1 (NEG past
 // the band edge), and the in-row left move solved as the max-plus
 // prefix scan m[d] = cummax(base + d) - d with base = max(diag, up). A
 // cell is valid where 0 <= j <= width; invalid cells hold NEG. Each cell
-// stores one byte dir | min(run, 63) << 2, dir 1 diagonal, 2 up, 3 left
+// holds one byte dir | min(run, 63) << 2, dir 1 diagonal, 2 up, 3 left
 // (in that priority), 0 where invalid or m <= NEG / 2; run is the length
 // of the same-direction chain ending in the cell (diagonal from (i-1, d),
 // up from (i-1, d+1), left the distance to the last non-left cell of the
 // row). `final` is the row i == qlen (row 0 where qlen == 0, else NEG
 // until reached).
 //
-// What bounds it on the H100: each pair is a dependent chain of Q rows,
-// and every row has two prefix scans across the band; the (Q+1) * band
-// direction bytes per pair (237 MB per 16,384 pairs at Q=304, band 48)
-// are written once and never read back here.
+// bm_dp_fwd writes every direction byte to device memory ((Q+1) x band
+// per pair) and the final row: the packed-ops path's per-cell traceback
+// reads them there. bm_dp_runs keeps the pair's direction strip (rows
+// 1..min(qlen, Q), band bytes each) in shared memory, or, where the strip
+// cannot fit beside the block's other strip, in a per-pair slice of a
+// device scratch. After the last row one lane of the pair takes the
+// final row's max (the smallest d at it), walks at most T2 run jumps on
+// the strip (a jump consumes a whole same-direction chain, at most 63
+// cells), merges the jumps a 63-cap split left with the same op, and
+// writes only the score, the begin, the run count, the first MR merged
+// runs in query order as length << 2 | op, the longest of those and
+// the unterminated flag. wrap_star starts rows with score < -60 at
+// i = 0 (an empty traceback). The strip is read at d clamped to the
+// band; d itself is not clamped.
 //
-// Design: one warp per pair, 4 pairs per block. Lane l holds cells
-// d = l + 32 r for r < R = ceil(band / 32) <= 4, so one compiled kernel
-// per R serves any band up to 128 with `band` and `lo` given at run time.
-// `up` is a shuffle down by one across the register chunks; both prefix
-// scans (the max-plus cummax and the last non-left index) are 5-step
-// __shfl_up_sync max-scans with a carry between chunks. The pair's text
-// window and query codes sit in shared memory as bytes. Each row's band
-// bytes go out as one coalesced store per chunk.
+// What bounds it on the H100: each pair is a dependent chain of rows,
+// and every row has two prefix scans across the band, so the DP is
+// bound by the latency of its in-row scans and by operation issue, not
+// by memory; the direction bytes (237 MB per 16,384 pairs at Q 304,
+// band 48) were the only large traffic, and bm_dp_runs never writes
+// them.
+//
+// Design: L lanes per pair, C consecutive cells per lane (d = C l + c):
+// 16 x 1..4 for band <= 64 (two pairs per warp), 32 x 3..4 above, so a
+// compiled kernel per (L, C) serves any band up to 128 with `band` and
+// `lo` given at run time. The max-plus scan runs serially over a lane's
+// C cells, then as a log2(L)-step shuffle scan over the pair's lanes;
+// the up source of a lane's last cell is one shuffle down. The last
+// non-left cell comes from one ballot per cell slot instead of a second
+// shuffle scan. The pair's text window and query codes sit in shared
+// memory as bytes. bm_dp_runs runs one warp per block, so a block holds
+// one or two strips (14.6 KB each at Q 304, band 48) and several blocks
+// share an SM.
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kNeg = -100000000;  // NEG of the aligner
-constexpr int kMinInt = -2147483647 - 1;
+constexpr int kFwdWarps = 4;      // warps per block of bm_dp_fwd
+constexpr size_t kSmemMax = 227 * 1024;
 
-// Inclusive max-scan over the 32 lanes (lane 0 first).
-__device__ __forceinline__ int warp_cummax(int x, int lane) {
+// The pair that lanes [g L, g L + L) of a warp own: its index, the
+// lane within the pair and the warp's lanes below that lane in the pair.
+template <int L>
+struct Group {
+  int l;
+  unsigned below;
+  __device__ explicit Group(int lane)
+      : l(lane % L),
+        below(((1u << lane) - 1u) & ~((1u << (lane - lane % L)) - 1u)) {}
+};
+
+// The DP rows 1..n_rows of one pair on its L lanes; store(i, d, byte)
+// takes every direction byte of a cell d < band. prev/fin come in as
+// row 0 and go out as the last row computed and the row i == ql.
+template <int L, int C, class Store>
+__device__ __forceinline__ void dp_rows(const uint8_t* s_text,
+                                        const uint8_t* s_q, int n_rows,
+                                        int wid, int ql, int band, int lo,
+                                        const Group<L>& gr, int (&fin)[C],
+                                        Store store) {
+  int prev[C], pdb[C];
 #pragma unroll
-  for (int k = 1; k < 32; k <<= 1) {
-    const int y = __shfl_up_sync(kFull, x, k);
-    if (lane >= k) x = max(x, y);
+  for (int c = 0; c < C; ++c) {
+    const int j0 = C * gr.l + c - lo;
+    prev[c] = (j0 >= 0 && j0 <= wid) ? 0 : kNeg;
+    pdb[c] = 0;
+    fin[c] = ql == 0 ? prev[c] : kNeg;
   }
-  return x;
+  for (int i = 1; i <= n_rows; ++i) {
+    const int qc = s_q[i - 1];
+    // the next lane's first cell: the up source of this lane's last cell
+    const int nm = __shfl_down_sync(kFull, prev[0], 1, L);
+    const int ndb = __shfl_down_sync(kFull, pdb[0], 1, L);
+    int diag[C], up[C], udb[C], x[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int d = C * gr.l + c;
+      const bool edge = d + 1 >= band;
+      up[c] = (edge ? kNeg : (c + 1 < C ? prev[c + 1] : nm)) - 1;
+      udb[c] = edge ? 0 : (c + 1 < C ? pdb[c + 1] : ndb);
+      const int t = d < band ? s_text[i - 1 + d] : 4;
+      diag[c] = prev[c] + (t == qc ? 0 : -1);
+      x[c] = max(diag[c], up[c]) + d;
+      if (c > 0) x[c] = max(x[c], x[c - 1]);
+    }
+    // max-plus prefix over the pair's lanes before this one
+    int tot = x[C - 1];
+#pragma unroll
+    for (int k = 1; k < L; k <<= 1) {
+      const int y = __shfl_up_sync(kFull, tot, k, L);
+      if (gr.l >= k) tot = max(tot, y);
+    }
+    int before = __shfl_up_sync(kFull, tot, 1, L);
+    if (gr.l == 0) before = INT_MIN;
+    int m[C], dir[C];
+    unsigned nonleft[C], any = 0u;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int d = C * gr.l + c;
+      const int j = i + d - lo;
+      const bool valid = j >= 0 && j <= wid;
+      m[c] = valid ? max(x[c], before) - d : kNeg;
+      dir[c] = m[c] == diag[c] ? 1 : (m[c] == up[c] ? 2 : 3);
+      if (!(valid && m[c] > kNeg / 2)) dir[c] = 0;
+      nonleft[c] = __ballot_sync(kFull, dir[c] != 3);
+      any |= nonleft[c];
+    }
+    // the last non-left cell before this lane's cells: the highest lane
+    // below with one, then its highest such cell
+    int last = -1;
+    const unsigned lanes = any & gr.below;
+    if (lanes != 0u) {
+      const int ls = 31 - __clz(lanes);
+      int cs = 0;
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        if ((nonleft[c] >> ls) & 1u) cs = c;
+      last = C * (ls % L) + cs;
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int d = C * gr.l + c;
+      if (dir[c] != 3) last = d;
+      const int pd = pdb[c] & 3, pr = pdb[c] >> 2;
+      const int ud = udb[c] & 3, ur = udb[c] >> 2;
+      const int run1 = min((pd == 1 ? pr : 0) + 1, 63);
+      const int run2 = min((ud == 2 ? ur : 0) + 1, 63);
+      const int run3 = min(d - last, 63);
+      const int run = dir[c] == 1 ? run1
+                                  : (dir[c] == 2 ? run2
+                                                 : (dir[c] == 3 ? run3 : 0));
+      const int db = dir[c] > 0 ? (dir[c] | (run << 2)) : 0;
+      if (d < band) store(i, d, db);
+      if (i == ql) fin[c] = m[c];
+      prev[c] = m[c];
+      pdb[c] = db;
+    }
+  }
 }
 
-template <int R>
-__global__ void __launch_bounds__(kThreads)
+// The pair's text window (W bytes) and query codes (Q bytes) into shared
+// memory, by the pair's L lanes.
+template <int L>
+__device__ __forceinline__ void stage(uint8_t* s_text, uint8_t* s_q,
+                                      const uint8_t* tp, const uint8_t* qp,
+                                      int W, int Q, int l) {
+  for (int k = l; k < W; k += L) s_text[k] = tp[k];
+  for (int k = l; k < Q; k += L) s_q[k] = qp[k];
+}
+
+int round_up(int64_t x, int a) { return static_cast<int>((x + a - 1) / a * a); }
+
+// ---- bm_dp_fwd ---------------------------------------------------------
+
+template <int L, int C>
+__global__ void __launch_bounds__(32 * kFwdWarps)
 dp_fwd_kernel(const uint8_t* __restrict__ textp,
               const uint8_t* __restrict__ qcodes,
               const int32_t* __restrict__ qlen,
@@ -62,108 +190,236 @@ dp_fwd_kernel(const uint8_t* __restrict__ textp,
               int Q, int band, int lo, int smem_stride,
               uint8_t* __restrict__ dirs, int32_t* __restrict__ final_out) {
   extern __shared__ uint8_t smem[];
-  const int warp = threadIdx.x >> 5;
+  constexpr int G = 32 / L;
   const int lane = threadIdx.x & 31;
-  const int64_t pair = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
-  if (pair >= n_pairs) return;  // uniform across the warp
+  const Group<L> gr(lane);
+  const int slot = (threadIdx.x >> 5) * G + lane / L;
+  const int64_t raw = static_cast<int64_t>(blockIdx.x) * kFwdWarps * G + slot;
+  const bool live = raw < n_pairs;
+  const int64_t pair = live ? raw : n_pairs - 1;  // every lane runs the rows
 
-  uint8_t* s_text = smem + warp * smem_stride;
+  uint8_t* s_text = smem + slot * smem_stride;
   uint8_t* s_q = s_text + W;
-  const uint8_t* tp = textp + pair * W;
-  const uint8_t* qp = qcodes + pair * Q;
-  for (int k = lane; k < W; k += 32) s_text[k] = tp[k];
-  for (int k = lane; k < Q; k += 32) s_q[k] = qp[k];
+  stage<L>(s_text, s_q, textp + pair * W, qcodes + pair * Q, W, Q, gr.l);
   __syncwarp();
 
-  const int wid = width[pair];
-  const int ql = qlen[pair];
   const int64_t row_stride = n_pairs * band;
   uint8_t* out = dirs + pair * band;
-
-  int prev[R], pdb[R], fin[R];
+  if (live)
+    for (int d = gr.l; d < band; d += L) out[d] = 0;  // row 0: all stop
+  int fin[C];
+  dp_rows<L, C>(s_text, s_q, Q, width[pair], qlen[pair], band, lo, gr, fin,
+                [&](int i, int d, int db) {
+                  if (live) out[i * row_stride + d] = static_cast<uint8_t>(db);
+                });
+  if (!live) return;
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int d = lane + 32 * r;
-    const int j0 = d - lo;
-    const int v = (j0 >= 0 && j0 <= wid) ? 0 : kNeg;
-    prev[r] = v;
-    pdb[r] = 0;
-    fin[r] = ql == 0 ? v : kNeg;
-    if (d < band) out[d] = 0;  // row 0: all stop
-  }
-
-  for (int i = 1; i <= Q; ++i) {
-    const int qc = s_q[i - 1];
-    // the previous row at d + 1 (the up move's source)
-    int up_m[R], up_db[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int rn = r + 1 < R ? r + 1 : r;
-      const int a = __shfl_down_sync(kFull, prev[r], 1);
-      const int b = __shfl_down_sync(kFull, pdb[r], 1);
-      const int a0 = __shfl_sync(kFull, prev[rn], 0);
-      const int b0 = __shfl_sync(kFull, pdb[rn], 0);
-      const int d = lane + 32 * r;
-      const bool edge = d + 1 >= band;
-      up_m[r] = edge ? kNeg : (lane == 31 ? a0 : a);
-      up_db[r] = edge ? 0 : (lane == 31 ? b0 : b);
-    }
-    int carry_m = kMinInt;
-    int carry_last = -1;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int d = lane + 32 * r;
-      const int t = d < band ? s_text[i - 1 + d] : 4;
-      const int diag = prev[r] + (t == qc ? 0 : -1);
-      const int up = up_m[r] - 1;
-      int x = warp_cummax(max(diag, up) + d, lane);
-      x = max(x, carry_m);
-      carry_m = __shfl_sync(kFull, x, 31);
-      const int j = i + d - lo;
-      const bool valid = j >= 0 && j <= wid;
-      const int m = valid ? x - d : kNeg;
-      int dir = m == diag ? 1 : (m == up ? 2 : 3);
-      if (!(valid && m > kNeg / 2)) dir = 0;
-
-      int last = warp_cummax(dir != 3 ? d : -1, lane);
-      last = max(last, carry_last);
-      carry_last = __shfl_sync(kFull, last, 31);
-
-      const int pd = pdb[r] & 3, pr = pdb[r] >> 2;
-      const int ud = up_db[r] & 3, ur = up_db[r] >> 2;
-      const int run1 = min((pd == 1 ? pr : 0) + 1, 63);
-      const int run2 = min((ud == 2 ? ur : 0) + 1, 63);
-      const int run3 = min(d - last, 63);
-      const int run = dir == 1 ? run1 : (dir == 2 ? run2 : (dir == 3 ? run3 : 0));
-      const int db = dir > 0 ? (dir | (run << 2)) : 0;
-      if (d < band) out[i * row_stride + d] = static_cast<uint8_t>(db);
-      if (i == ql) fin[r] = m;
-      prev[r] = m;
-      pdb[r] = db;
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int d = lane + 32 * r;
-    if (d < band) final_out[pair * band + d] = fin[r];
+  for (int c = 0; c < C; ++c) {
+    const int d = C * gr.l + c;
+    if (d < band) final_out[pair * band + d] = fin[c];
   }
 }
 
-template <int R>
-int launch(int64_t blocks, size_t smem, cudaStream_t st, const uint8_t* t,
-           const uint8_t* q, const int32_t* ql, const int32_t* w,
-           int64_t n_pairs, int W, int Q, int band, int lo, int stride,
-           uint8_t* dirs, int32_t* fin) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        dp_fwd_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+// ---- bm_dp_runs --------------------------------------------------------
+
+template <int L, int C, bool kSmemStrip>
+__global__ void __launch_bounds__(32)
+dp_runs_kernel(const uint8_t* __restrict__ textp,
+               const uint8_t* __restrict__ qcodes,
+               const int32_t* __restrict__ qlen,
+               const int32_t* __restrict__ width, int64_t n_pairs, int W,
+               int Q, int band, int lo, int T2, int MR, int wrap_star,
+               int smem_stride, int strip_bytes,
+               uint8_t* __restrict__ scratch, int32_t* __restrict__ head,
+               int32_t* __restrict__ runs) {
+  extern __shared__ uint8_t smem[];
+  constexpr int G = 32 / L;
+  const int lane = threadIdx.x & 31;
+  const Group<L> gr(lane);
+  const int g = lane / L;
+  const int64_t raw = static_cast<int64_t>(blockIdx.x) * G + g;
+  const bool live = raw < n_pairs;
+  const int64_t pair = live ? raw : n_pairs - 1;
+
+  uint8_t* s_base = smem + g * smem_stride;
+  uint8_t* strip = kSmemStrip ? s_base : scratch + pair * (int64_t)Q * band;
+  uint8_t* s_text = s_base + (kSmemStrip ? strip_bytes : 0);
+  uint8_t* s_q = s_text + W;
+  stage<L>(s_text, s_q, textp + pair * W, qcodes + pair * Q, W, Q, gr.l);
+  __syncwarp();
+
+  const int ql = qlen[pair];
+  // rows past qlen feed no traceback; the warp runs its pairs' longest
+  const int n_rows = __reduce_max_sync(kFull, min(ql, Q));
+  int fin[C];
+  dp_rows<L, C>(s_text, s_q, n_rows, width[pair], ql, band, lo, gr, fin,
+                [&](int i, int d, int db) {
+                  strip[(i - 1) * band + d] = static_cast<uint8_t>(db);
+                });
+
+  // score and end d: the final row's max, the smallest d at it
+  int best = INT_MIN, bd = band;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int d = C * gr.l + c;
+    if (d < band && fin[c] > best) {
+      best = fin[c];
+      bd = d;
+    }
   }
-  dp_fwd_kernel<R><<<static_cast<unsigned>(blocks), kThreads, smem, st>>>(
-      t, q, ql, w, n_pairs, W, Q, band, lo, stride, dirs, fin);
+#pragma unroll
+  for (int k = L / 2; k > 0; k >>= 1) {
+    const int ob = __shfl_xor_sync(kFull, best, k, L);
+    const int od = __shfl_xor_sync(kFull, bd, k, L);
+    if (ob > best || (ob == best && od < bd)) {
+      best = ob;
+      bd = od;
+    }
+  }
+  __syncwarp();  // the strip's bytes, written by every lane, to lane 0
+
+  const int i0 = (wrap_star && best < -60) ? 0 : ql;
+  auto byte_at = [&](int i, int d) -> int {
+    return strip[(min(i, Q) - 1) * band + min(max(d, 0), band - 1)];
+  };
+  // first walk: the merged run count and where the walk ends
+  int n_runs = 0, fi = i0, fd = bd;
+  if (gr.l == 0) {
+    int prev_op = 0;
+    for (int t = 0; t < T2 && fi > 0; ++t) {
+      const int b = byte_at(fi, fd);
+      const int op = b & 3, run = b >> 2;
+      if (op == 0) break;  // no move: the walk stays here to its end
+      n_runs += op != prev_op;
+      prev_op = op;
+      if (op != 3) fi -= run;
+      fd += op == 2 ? run : (op == 3 ? -run : 0);
+    }
+  }
+  n_runs = __shfl_sync(kFull, n_runs, 0, L);
+  const int kept = min(n_runs, MR);
+  int32_t* my_runs = runs + pair * MR;
+  if (live)
+    for (int k = kept + gr.l; k < MR; k += L) my_runs[k] = 0;
+  if (gr.l != 0 || !live) return;
+  // second walk: merged run r (traceback order) is query-order run
+  // n_runs - 1 - r; the first MR of those are kept
+  int i = i0, d = bd, r = -1, cur_op = 0, cur_len = 0, max_len = 0;
+  auto emit = [&]() {
+    const int k = n_runs - 1 - r;
+    if (k < MR) {
+      my_runs[k] = (cur_len << 2) | cur_op;
+      max_len = max(max_len, cur_len);
+    }
+  };
+  for (int t = 0; t < T2 && i > 0; ++t) {
+    const int b = byte_at(i, d);
+    const int op = b & 3, run = b >> 2;
+    if (op == 0) break;
+    if (op != cur_op) {
+      if (cur_op != 0) emit();
+      ++r;
+      cur_op = op;
+      cur_len = 0;
+    }
+    cur_len += run;
+    if (op != 3) i -= run;
+    d += op == 2 ? run : (op == 3 ? -run : 0);
+  }
+  if (cur_op != 0) emit();
+  head[pair] = best;
+  head[n_pairs + pair] = fd - lo;
+  head[2 * n_pairs + pair] = n_runs;
+  head[3 * n_pairs + pair] = max_len;
+  head[4 * n_pairs + pair] = fi > 0;
+}
+
+// ---- launch ------------------------------------------------------------
+
+template <class K>
+int set_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
+}
+
+struct Args {
+  const uint8_t* t;
+  const uint8_t* q;
+  const int32_t* ql;
+  const int32_t* w;
+  int64_t n_pairs;
+  int W, Q, band, lo;
+  cudaStream_t st;
+};
+
+template <int L, int C>
+int launch_fwd(const Args& a, uint8_t* dirs, int32_t* fin) {
+  constexpr int G = 32 / L;
+  const int stride = round_up(a.W + a.Q, 16);
+  const size_t smem = static_cast<size_t>(stride) * kFwdWarps * G;
+  if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t blocks = (a.n_pairs + kFwdWarps * G - 1) / (kFwdWarps * G);
+  if (blocks > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+  if (const int e = set_smem(dp_fwd_kernel<L, C>, smem)) return e;
+  dp_fwd_kernel<L, C><<<static_cast<unsigned>(blocks), 32 * kFwdWarps, smem,
+                        a.st>>>(a.t, a.q, a.ql, a.w, a.n_pairs, a.W, a.Q,
+                                a.band, a.lo, stride, dirs, fin);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Shared-memory bytes of one pair of bm_dp_runs: (strip, staging, stride),
+// the strip 0 where the block's strips do not fit. The stride is an odd
+// multiple of 64 bytes, so the two pairs of a warp sit on other banks.
+struct RunsSmem {
+  int strip, stride;
+  size_t block;
+};
+
+RunsSmem runs_smem(int lanes, int W, int Q, int band) {
+  const int G = 32 / lanes;
+  const int64_t strip = static_cast<int64_t>(Q) * band;
+  const int stage = round_up(W + Q, 16);
+  for (int64_t s = strip;; s = 0) {
+    const int stride = round_up(s + stage, 128) + 64;
+    const size_t block = static_cast<size_t>(stride) * G;
+    if (block <= kSmemMax) return {static_cast<int>(s), stride, block};
+    if (s == 0) return {-1, 0, 0};
+  }
+}
+
+int lanes_for(int band) { return band <= 64 ? 16 : 32; }
+
+template <int L, int C>
+int launch_runs(const Args& a, int T2, int MR, int wrap_star,
+                uint8_t* scratch, int32_t* head, int32_t* runs) {
+  constexpr int G = 32 / L;
+  const RunsSmem s = runs_smem(L, a.W, a.Q, a.band);
+  if (s.strip < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bool in_smem = s.strip > 0 || a.Q == 0;
+  if (!in_smem && scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t blocks = (a.n_pairs + G - 1) / G;
+  if (blocks > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = in_smem ? dp_runs_kernel<L, C, true>
+                        : dp_runs_kernel<L, C, false>;
+  if (const int e = set_smem(kernel, s.block)) return e;
+  kernel<<<static_cast<unsigned>(blocks), 32, s.block, a.st>>>(
+      a.t, a.q, a.ql, a.w, a.n_pairs, a.W, a.Q, a.band, a.lo, T2, MR,
+      wrap_star, s.stride, s.strip, scratch, head, runs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// (L, C) by band: 16 lanes up to 64 diagonals, 32 above.
+int variant(int band) {
+  return band <= 16 ? 0 : band <= 32 ? 1 : band <= 48 ? 2 : band <= 64 ? 3
+                                                      : band <= 96 ? 4 : 5;
+}
+
+bool bad_geometry(int64_t n_pairs, int W, int Q, int band, int lo) {
+  return n_pairs < 0 || Q < 0 || band < 1 || band > 128 || lo < 0 ||
+         lo >= band || W < Q + band - 1;
 }
 
 }  // namespace
@@ -177,26 +433,65 @@ extern "C" int bm_dp_fwd(const void* textp, const void* qcodes,
                          const void* qlen, const void* width, int64_t n_pairs,
                          int W, int Q, int band, int lo, void* dirs,
                          void* final_out, void* stream) {
-  if (n_pairs < 0 || Q < 0 || band < 1 || band > 128 || lo < 0 ||
-      lo >= band || W < Q + band - 1)
+  if (bad_geometry(n_pairs, W, Q, band, lo))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_pairs == 0) return static_cast<int>(cudaGetLastError());
-  const int stride = (W + Q + 15) / 16 * 16;
-  const size_t smem = static_cast<size_t>(stride) * kWarps;
-  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t blocks = (n_pairs + kWarps - 1) / kWarps;
-  if (blocks > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
-  auto st = static_cast<cudaStream_t>(stream);
-  auto t = static_cast<const uint8_t*>(textp);
-  auto q = static_cast<const uint8_t*>(qcodes);
-  auto ql = static_cast<const int32_t*>(qlen);
-  auto w = static_cast<const int32_t*>(width);
+  const Args a{static_cast<const uint8_t*>(textp),
+               static_cast<const uint8_t*>(qcodes),
+               static_cast<const int32_t*>(qlen),
+               static_cast<const int32_t*>(width), n_pairs, W, Q, band, lo,
+               static_cast<cudaStream_t>(stream)};
   auto d = static_cast<uint8_t*>(dirs);
   auto f = static_cast<int32_t*>(final_out);
-  switch ((band + 31) / 32) {
-    case 1: return launch<1>(blocks, smem, st, t, q, ql, w, n_pairs, W, Q, band, lo, stride, d, f);
-    case 2: return launch<2>(blocks, smem, st, t, q, ql, w, n_pairs, W, Q, band, lo, stride, d, f);
-    case 3: return launch<3>(blocks, smem, st, t, q, ql, w, n_pairs, W, Q, band, lo, stride, d, f);
-    default: return launch<4>(blocks, smem, st, t, q, ql, w, n_pairs, W, Q, band, lo, stride, d, f);
+  switch (variant(band)) {
+    case 0: return launch_fwd<16, 1>(a, d, f);
+    case 1: return launch_fwd<16, 2>(a, d, f);
+    case 2: return launch_fwd<16, 3>(a, d, f);
+    case 3: return launch_fwd<16, 4>(a, d, f);
+    case 4: return launch_fwd<32, 3>(a, d, f);
+    default: return launch_fwd<32, 4>(a, d, f);
+  }
+}
+
+// Bytes of device scratch bm_dp_runs needs for n_pairs pairs at this
+// geometry: 0 where each pair's strip fits in shared memory, n_pairs *
+// Q * band where it does not, -1 where not even the staging fits.
+extern "C" int64_t bm_dp_runs_scratch_bytes(int64_t n_pairs, int W, int Q,
+                                            int band) {
+  const RunsSmem s = runs_smem(lanes_for(band), W, Q, band);
+  if (s.strip < 0) return -1;
+  return s.strip > 0 || Q == 0 ? 0 : n_pairs * Q * band;
+}
+
+// The DP of bm_dp_fwd with the run-jump traceback and per-row RLE behind
+// it. Inputs as bm_dp_fwd; T2 run jumps at most, MR runs kept per row;
+// wrap_star 0 or 1. scratch: bm_dp_runs_scratch_bytes bytes (may be null
+// where that is 0). Outputs head (5, P) i32, rows score, begin, run
+// count, longest kept run, unterminated (0/1); runs (P, MR) i32, merged
+// runs in query order as length << 2 | op, 0 past the kept ones.
+extern "C" int bm_dp_runs(const void* textp, const void* qcodes,
+                          const void* qlen, const void* width, int64_t n_pairs,
+                          int W, int Q, int band, int lo, int T2, int MR,
+                          int wrap_star, void* scratch, void* head, void* runs,
+                          void* stream) {
+  if (bad_geometry(n_pairs, W, Q, band, lo) || T2 < 0 || MR < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_pairs == 0) return static_cast<int>(cudaGetLastError());
+  const Args a{static_cast<const uint8_t*>(textp),
+               static_cast<const uint8_t*>(qcodes),
+               static_cast<const int32_t*>(qlen),
+               static_cast<const int32_t*>(width), n_pairs, W, Q, band, lo,
+               static_cast<cudaStream_t>(stream)};
+  auto s = static_cast<uint8_t*>(scratch);
+  auto h = static_cast<int32_t*>(head);
+  auto r = static_cast<int32_t*>(runs);
+  const int ws = wrap_star != 0;
+  switch (variant(band)) {
+    case 0: return launch_runs<16, 1>(a, T2, MR, ws, s, h, r);
+    case 1: return launch_runs<16, 2>(a, T2, MR, ws, s, h, r);
+    case 2: return launch_runs<16, 3>(a, T2, MR, ws, s, h, r);
+    case 3: return launch_runs<16, 4>(a, T2, MR, ws, s, h, r);
+    case 4: return launch_runs<32, 3>(a, T2, MR, ws, s, h, r);
+    default: return launch_runs<32, 4>(a, T2, MR, ws, s, h, r);
   }
 }

@@ -10,45 +10,71 @@
 //
 // What bounds it on the H100: device-memory traffic. Each sample reads nq
 // whole rows of a table far larger than L2 (4 rows of ~3.2 KB at the
-// bench shape) and writes one row: ~6.4 GB read and 1.6 GB written per
-// 16384-read batch, with one AND per word read.
+// bench shape) and writes one row: ~6.4 GB gathered and 1.6 GB written
+// per 16384-read batch, with one AND per word read.
 //
-// Design: one block per (group of kRows sample rows, 128-word tile); one
-// thread owns one word column. The block stages its kRows*nq row indices
-// in shared memory, then each thread walks the group's rows, so the
-// threads of a warp read neighbouring words of the same row and every row
-// read and every output store is a coalesced 512-byte sweep. No padding
-// of the table is needed: any width and any row count work.
+// Design: the column sweep of coarse_score.cu. The work unit is (a tile
+// of kWt = 128 words, a block of 8 sample rows); the grid runs sample
+// blocks fastest and column tiles slowest. One warp owns one sample row:
+// 4 words per lane, strided by 32 so each load instruction reads one
+// 128 B run of a table row. Lane q < nq loads the sample's q-th row index
+// once; the indices reach the other lanes by shuffles. The rows' loads go
+// out in batches of 4 rows, all 16 of a batch (4 rows x 4 words) before
+// the first AND, so at nq = 4 every load of the sample is in flight at
+// once. The output rows, which nothing reads back before the chunk scan,
+// go out with streaming (evict-first) stores. Any width, any row count
+// and 1 <= nq <= 16 work; no padding of the table is needed.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kRows = 16;           // sample rows per block
-constexpr int kMaxNq = 16;          // k <= 16
+constexpr int kWt = 128;                  // words per column tile
+constexpr int kWpl = kWt / 32;            // words per lane
+constexpr int kThreads = 256;
+constexpr int kSamples = kThreads / 32;   // sample rows per block
+constexpr int kBatch = 4;                 // rows per batch: 16 loads in flight
+constexpr int kMaxNq = 16;                // k <= 16
 
 __global__ void __launch_bounds__(kThreads)
 presence_gather_kernel(const uint32_t* __restrict__ table, int64_t w,
                        const int32_t* __restrict__ rows, int64_t n_rows,
                        int nq, uint32_t* __restrict__ out) {
-  __shared__ int32_t srow[kRows * kMaxNq];
-  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * kRows;
-  const int64_t left = n_rows - r0;
-  const int nr = left < kRows ? static_cast<int>(left) : kRows;
-  for (int i = threadIdx.x; i < nr * nq; i += blockDim.x)
-    srow[i] = rows[r0 * nq + i];
-  __syncthreads();
-  const int64_t col = static_cast<int64_t>(blockIdx.y) * kThreads + threadIdx.x;
-  if (col >= w) return;
-  for (int r = 0; r < nr; ++r) {
-    uint32_t acc = 0xFFFFFFFFu;
+  const int lane = threadIdx.x % 32;
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * kSamples +
+                    threadIdx.x / 32;
+  if (r >= n_rows) return;  // uniform across the warp
+  const int32_t idx = lane < nq ? __ldg(rows + r * nq + lane) : 0;
+  // lane's words: col0 + 32 k, so a warp's load is one run per row
+  const int64_t col0 = static_cast<int64_t>(blockIdx.y) * kWt + lane;
+  const uint32_t* tcol[kWpl];
 #pragma unroll
-    for (int q = 0; q < kMaxNq; ++q)
-      if (q < nq)
-        acc &= __ldg(table + static_cast<int64_t>(srow[r * nq + q]) * w + col);
-    out[(r0 + r) * w + col] = acc;
+  for (int k = 0; k < kWpl; ++k) {
+    const int64_t col = col0 + k * 32;
+    tcol[k] = table + (col < w ? col : w - 1);
+  }
+  uint32_t acc[kWpl];
+#pragma unroll
+  for (int k = 0; k < kWpl; ++k) acc[k] = 0xFFFFFFFFu;
+  for (int q0 = 0; q0 < nq; q0 += kBatch) {
+    uint32_t v[kBatch][kWpl];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int64_t row = __shfl_sync(0xFFFFFFFFu, idx, q0 + b);
+#pragma unroll
+      for (int k = 0; k < kWpl; ++k)
+        v[b][k] = q0 + b < nq ? __ldg(tcol[k] + row * w) : 0xFFFFFFFFu;
+    }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b)
+#pragma unroll
+      for (int k = 0; k < kWpl; ++k) acc[k] &= v[b][k];
+  }
+#pragma unroll
+  for (int k = 0; k < kWpl; ++k) {
+    const int64_t col = col0 + k * 32;
+    if (col < w) __stcs(out + r * w + col, acc[k]);
   }
 }
 
@@ -60,12 +86,13 @@ extern "C" int bm_presence_gather(const void* table, int64_t w,
                                   const void* rows, int64_t n_rows, int nq,
                                   void* out, void* stream) {
   if (nq < 1 || nq > kMaxNq || w < 1 || n_rows < 0 ||
-      (n_rows + kRows - 1) / kRows > 0x7FFFFFFF ||
-      (w + kThreads - 1) / kThreads > 65535)
+      (n_rows + kSamples - 1) / kSamples > 0x7FFFFFFF ||
+      (w + kWt - 1) / kWt > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows > 0) {
-    const dim3 grid(static_cast<unsigned>((n_rows + kRows - 1) / kRows),
-                    static_cast<unsigned>((w + kThreads - 1) / kThreads));
+    // sample blocks fastest, column tiles slowest
+    const dim3 grid(static_cast<unsigned>((n_rows + kSamples - 1) / kSamples),
+                    static_cast<unsigned>((w + kWt - 1) / kWt));
     presence_gather_kernel<<<grid, kThreads, 0,
                              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint32_t*>(table), w,

@@ -27,8 +27,8 @@ SOURCES = ("coarse_score.cu", "fine_window.cu", "tally.cu", "dp_fwd.cu",
            "presence_gather.cu", "chunk_scan.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
-KERNELS = ("coarse_score", "fine_window", "tally", "dp_fwd", "presence_gather",
-           "chunk_scan")
+KERNELS = ("coarse_score", "fine_window", "tally", "dp_fwd", "dp_runs",
+           "presence_gather", "chunk_scan")
 
 LAUNCHES = {name: 0 for name in KERNELS}
 BUILD_INFO: dict = {}
@@ -133,6 +133,11 @@ def library():
             lib.bm_dp_fwd.argtypes = [p, p, p, p, i64, i32, i32, i32, i32, p,
                                       p, p]
             lib.bm_dp_fwd.restype = i32
+            lib.bm_dp_runs.argtypes = [p, p, p, p, i64, i32, i32, i32, i32,
+                                       i32, i32, i32, p, p, p, p]
+            lib.bm_dp_runs.restype = i32
+            lib.bm_dp_runs_scratch_bytes.argtypes = [i64, i32, i32, i32]
+            lib.bm_dp_runs_scratch_bytes.restype = i64
             lib.bm_presence_gather.argtypes = [p, i64, p, i64, i32, p, p]
             lib.bm_presence_gather.restype = i32
             lib.bm_chunk_scan.argtypes = [p, i64, i32, i64, i32,

@@ -8,11 +8,15 @@ CIGAR from a diagonal-first traceback. Reverse-strand pairs align the
 original read against the reverse-complemented window, and report the
 begin in that window's coordinates (the reference's POS quirk, kept).
 
-The forward DP is the `dp_fwd` kernel (`csrc/dp_fwd.cu`) on a CUDA
-tensor and `dp_fwd_plain` on a CPU tensor. Window extraction, the
-traceback and the run-length encoding of the CIGAR runs are plain torch.
-The packed genome is held on the device as int32 words, with zero words
-past each bucket's end.
+Two kernels of `csrc/dp_fwd.cu` run the DP on a CUDA tensor; their
+plain versions run on a CPU tensor. `dp_runs` (the device-RLE path,
+`align_batch_runs_stream`) is the DP with the run-jump traceback and
+each row's run-length encoding fused behind it: it returns each pair's
+score, begin and merged runs. `dp_fwd` (the packed-ops path and its
+overflow re-run) returns every direction byte for the per-cell
+traceback in plain torch. Window extraction and the cross-pair packing
+of the runs are plain torch. The packed genome is held on the device as
+int32 words, with zero words past each bucket's end.
 """
 
 from __future__ import annotations
@@ -31,6 +35,9 @@ LO = 32          # j - i >= -LO
 _OP_CHARS = {1: "M", 2: "I", 3: "D"}
 _NT_PAD = 4      # 128-word zero tiles past each bucket, as the reference pads
 MAX_PAIR_BATCH = 16384
+# Per-row run cap of the device RLE. A record-worthy alignment at quality
+# threshold qt >= 0 has at most 60 - qt edits, ~2x that many runs.
+MAX_ROW_RUNS = 128
 
 
 def band_geometry(Q: int, indel_rate: float) -> tuple[int, int]:
@@ -114,13 +121,9 @@ def dp_fwd_plain(textp: torch.Tensor, qcodes: torch.Tensor, qlen, width,
     return dirs, final
 
 
-def dp_fwd(textp: torch.Tensor, qcodes: torch.Tensor, qlen, width,
-           band: int, lo: int):
-    """Forward DP: the CUDA kernel on CUDA tensors, the plain version on
-    CPU tensors. Same arguments and results as dp_fwd_plain; the kernel
-    takes textp and qcodes as uint8, qlen and width as int32."""
-    if textp.device.type == "cpu":
-        return dp_fwd_plain(textp, qcodes, qlen, width, band, lo)
+def _check_dp_args(textp, qcodes, qlen, width, band: int, lo: int):
+    """(P, W, Q) of a DP kernel's arguments; raises on what it does not
+    take."""
     P, W = textp.shape
     Q = qcodes.shape[1]
     kernels.require(textp, "textp", torch.uint8, (P, W))
@@ -132,6 +135,17 @@ def dp_fwd(textp: torch.Tensor, qcodes: torch.Tensor, qlen, width,
             raise ValueError(f"{name} and textp must be on the same device")
     if not (1 <= band <= BAND and 0 <= lo < band and W >= Q + band - 1):
         raise ValueError(f"bad geometry: band {band}, lo {lo}, W {W}, Q {Q}")
+    return P, W, Q
+
+
+def dp_fwd(textp: torch.Tensor, qcodes: torch.Tensor, qlen, width,
+           band: int, lo: int):
+    """Forward DP: the CUDA kernel on CUDA tensors, the plain version on
+    CPU tensors. Same arguments and results as dp_fwd_plain; the kernel
+    takes textp and qcodes as uint8, qlen and width as int32."""
+    if textp.device.type == "cpu":
+        return dp_fwd_plain(textp, qcodes, qlen, width, band, lo)
+    P, W, Q = _check_dp_args(textp, qcodes, qlen, width, band, lo)
     dirs = torch.empty((Q + 1, P, band), dtype=torch.uint8, device=textp.device)
     final = torch.empty((P, band), dtype=torch.int32, device=textp.device)
     err = kernels.library().bm_dp_fwd(
@@ -143,6 +157,133 @@ def dp_fwd(textp: torch.Tensor, qcodes: torch.Tensor, qlen, width,
     return dirs, final
 
 
+def run_jumps(band: int) -> int:
+    """T2, the run-jump budget of the traceback at this band."""
+    return 192 if band >= BAND else 64
+
+
+def dp_runs_plain(textp: torch.Tensor, qcodes: torch.Tensor, qlen, width,
+                  band: int, lo: int, wrap_star: bool):
+    """Plain PyTorch version of the fused DP + run-jump traceback + per-row
+    RLE kernel: dp_fwd_plain, then the traceback and the RLE in torch.
+
+    Arguments as dp_fwd_plain. The traceback starts at (qlen, the
+    smallest d at the final row's max) and each step jumps a whole
+    same-op chain (runs capped at 63), run_jumps(band) steps at most;
+    wrap_star starts rows with score < -60 at row 0, so their traceback
+    is empty. The jumps in query order (reversed), with adjacent ones of
+    the same op (a chain split by the 63 cap) merged, are the row's runs.
+    Returns head (5, P) int32, rows score, begin (final d - lo), run
+    count (also the runs past the cap), longest kept run, unterminated
+    (0/1); and runs (P, MR) int32, MR = min(MAX_ROW_RUNS, T2), the first
+    MR runs as length << 2 | op, 0 past them."""
+    P, Q = qcodes.shape
+    dev = textp.device
+    i64 = torch.int64
+    dirs, final = dp_fwd_plain(textp, qcodes, qlen, width, band, lo)
+    score = final.amax(dim=1).to(i64)
+    flat = dirs.reshape(-1)
+    row = P * band
+    pbase = torch.arange(P, dtype=i64, device=dev) * band
+    qlen64 = qlen.to(i64)
+    T = run_jumps(band)
+    i = torch.where(score < -60, 0, qlen64) if wrap_star else qlen64
+    d = first_max_index(final)
+    ops, lens = [], []
+    for _ in range(T):
+        # the byte at d clamped to the band; d itself is not clamped
+        b = flat[i.clamp_max(Q) * row + pbase + d.clamp(0, band - 1)].to(i64)
+        active = i > 0
+        op = torch.where(active, b & 3, 0)
+        run = torch.where(active, b >> 2, 0)
+        i = torch.where((op == 1) | (op == 2), i - run, i)
+        d = torch.where(op == 2, d + run, torch.where(op == 3, d - run, d))
+        ops.append(op)
+        lens.append(run)
+
+    MR = min(MAX_ROW_RUNS, T)
+    col = torch.arange(T, dtype=i64, device=dev)[None, :]
+    # query order = reversed traceback order; a chain split by the 63 cap
+    # leaves adjacent entries with the same op, merged here
+    codes = torch.stack(ops, dim=1).flip(1)
+    weights = torch.stack(lens, dim=1).flip(1)
+    nz = codes != 0
+    key = torch.where(nz, col * 4 + codes, -1)
+    prev_key = torch.cummax(torch.nn.functional.pad(
+        key[:, :-1], (1, 0), value=-1), dim=1).values
+    prev_code = torch.where(prev_key >= 0, prev_key & 3, 0)
+    isstart = nz & (codes != prev_code)
+    run_id = torch.cumsum(isstart, dim=1) - 1
+    n_runs = isstart.sum(dim=1)
+    # per-run length (summed) and op (one per run) by run id; column MR
+    # collects the entries past the row cap and the zeros
+    rid = torch.where(nz & (run_id < MR), run_id, MR)
+    acc = torch.zeros((2, P, MR + 1), dtype=i64, device=dev)
+    rlen = acc[0].scatter_add_(1, rid, weights)[:, :MR]
+    rop = acc[1].scatter_(1, rid, codes)[:, :MR]
+    ridx = torch.arange(MR, dtype=i64, device=dev)[None, :]
+    valid_run = ridx < n_runs.clamp_max(MR)[:, None]
+    head = torch.stack([score, d - lo, n_runs,
+                        torch.where(valid_run, rlen, 0).amax(dim=1),
+                        (i > 0).to(i64)]).to(torch.int32)
+    return head, torch.where(valid_run, (rlen << 2) | rop, 0).to(torch.int32)
+
+
+def dp_runs(textp: torch.Tensor, qcodes: torch.Tensor, qlen, width,
+            band: int, lo: int, wrap_star: bool):
+    """Fused DP + run-jump traceback + per-row RLE: the CUDA kernel on
+    CUDA tensors, the plain version on CPU tensors. Same arguments and
+    results as dp_runs_plain; the kernel takes textp and qcodes as uint8,
+    qlen and width as int32."""
+    if textp.device.type == "cpu":
+        return dp_runs_plain(textp, qcodes, qlen, width, band, lo, wrap_star)
+    P, W, Q = _check_dp_args(textp, qcodes, qlen, width, band, lo)
+    T = run_jumps(band)
+    MR = min(MAX_ROW_RUNS, T)
+    dev = textp.device
+    lib = kernels.library()
+    nbytes = lib.bm_dp_runs_scratch_bytes(P, W, Q, band)
+    if nbytes < 0:
+        raise ValueError(f"Q {Q} is too long for the fused DP's staging")
+    scratch = (torch.empty(nbytes, dtype=torch.uint8, device=dev) if nbytes
+               else None)
+    head = torch.empty((5, P), dtype=torch.int32, device=dev)
+    runs = torch.empty((P, MR), dtype=torch.int32, device=dev)
+    err = lib.bm_dp_runs(
+        textp.data_ptr(), qcodes.data_ptr(), qlen.data_ptr(), width.data_ptr(),
+        P, W, Q, band, lo, T, MR, int(wrap_star),
+        None if scratch is None else scratch.data_ptr(), head.data_ptr(),
+        runs.data_ptr(), kernels.stream_handle(textp))
+    kernels.check(err, "dp_runs")
+    kernels.LAUNCHES["dp_runs"] += 1
+    return head, runs
+
+
+def runs_vector(head: torch.Tensor, runs: torch.Tensor,
+                run_cap: int) -> torch.Tensor:
+    """The device-RLE vector (BandedAligner._align_runs's layout) of
+    dp_runs's outputs: the header, score, begin and run count per row,
+    and the rows' kept runs back to back in run_cap uint16 slots, two per
+    int32 word. Slot s belongs to the row whose span [goff - n_runs, goff)
+    holds it, as that row's run s - (goff - n_runs); runs past a row's
+    kept MR, and slots past the last row, stay 0."""
+    P, MR = runs.shape
+    dev = runs.device
+    n_runs = head[2].to(torch.int64)
+    goff = torch.cumsum(n_runs, dim=0)
+    slot = torch.arange(run_cap, dtype=torch.int64, device=dev)
+    row = torch.searchsorted(goff, slot, right=True)
+    rowc = row.clamp_max(P - 1)
+    k = slot - (goff - n_runs)[rowc]
+    take = (row < P) & (k < MR)
+    flat = torch.where(take, runs.reshape(-1)[rowc * MR + k.clamp_max(MR - 1)],
+                       0).to(torch.int64).reshape(run_cap // 2, 2)
+    runs_w = i64_to_i32(flat[:, 0] | (flat[:, 1] << 16))
+    hdr = torch.stack([goff[-1], n_runs.amax(), head[3].amax().to(torch.int64),
+                       head[4].sum()]).to(torch.int32)
+    return torch.cat([hdr, head[:3].reshape(-1), runs_w])
+
+
 def first_max_index(final: torch.Tensor) -> torch.Tensor:
     """(P,) smallest d where final[:, d] equals the row's max."""
     band = final.shape[1]
@@ -152,10 +293,7 @@ def first_max_index(final: torch.Tensor) -> torch.Tensor:
 
 
 class BandedAligner:
-    # Per-row run cap of the device RLE. A record-worthy alignment at
-    # quality threshold qt >= 0 has at most 60 - qt edits, ~2x that many
-    # runs.
-    MAX_ROW_RUNS = 128
+    MAX_ROW_RUNS = MAX_ROW_RUNS
 
     def __init__(self, index: BucketIndex, device, pair_batch: int = 512):
         self.device = resolve_device(device)
@@ -220,50 +358,34 @@ class BandedAligner:
         bool, all on the aligner's device.
 
         tb_mode "cell": (score, begin, ops (P, Q + 2*lo) uint8), the
-        traceback one cell per step, ops in traceback order (0 = unused).
-        tb_mode "runs": (score, begin, run_op (P, T2), run_len (P, T2),
-        unterminated (P,) bool): each step jumps a whole same-op chain
-        (runs capped at 63). wrap_star starts rows with score < -60 at
-        row 0, so their traceback is empty."""
+        traceback one cell per step, ops in traceback order (0 = unused),
+        on dp_fwd's direction bytes: the dp_fwd kernel on the card, its
+        plain version on the CPU, the traceback in plain torch on both.
+        tb_mode "runs": dp_runs's (head (5, P), runs (P, MR)), each step
+        of the traceback jumping a whole same-op chain (runs capped at
+        63), the jumps merged into runs per row: the fused dp_runs kernel
+        on the card, dp_runs_plain on the CPU. wrap_star starts rows with
+        score < -60 at row 0, so their traceback is empty."""
         P, Q = qcodes.shape
         textp, band, lo = self._text_windows(Q, bucket_ids, offsets, is_rc,
                                              width)
+        if tb_mode == "runs":
+            return dp_runs(textp, qcodes.contiguous(), qlen, width, band, lo,
+                           wrap_star)
         dirs, final = dp_fwd(textp, qcodes.contiguous(), qlen, width, band, lo)
         score = final.amax(dim=1)
-        end_d = first_max_index(final)
         flat = dirs.reshape(-1)
         row = P * band
         pbase = torch.arange(P, dtype=torch.int64, device=dirs.device) * band
-
-        def get_byte(i, d):
-            return flat[i * row + pbase + d.clamp(0, band - 1)].to(torch.int64)
-
-        qlen64 = qlen.to(torch.int64)
-        if tb_mode == "runs":
-            T2 = 192 if band >= BAND else 64
-            i = torch.where(score < -60, 0, qlen64) if wrap_star else qlen64
-            d = end_d
-            ops, lens = [], []
-            for _ in range(T2):
-                b = get_byte(i, d)
-                active = i > 0
-                op = torch.where(active, b & 3, 0)
-                run = torch.where(active, b >> 2, 0)
-                i = torch.where((op == 1) | (op == 2), i - run, i)
-                d = torch.where(op == 2, d + run, torch.where(op == 3, d - run, d))
-                ops.append(op)
-                lens.append(run)
-            return (score, d - lo, torch.stack(ops, dim=1),
-                    torch.stack(lens, dim=1), i > 0)
-
         # per-cell traceback: as many steps as the reference's unroll-by-4
         # loop takes, since an unfinished traceback's final d depends on it
         max_ops = Q + 2 * lo
-        i, d = qlen64, end_d
+        i, d = qlen.to(torch.int64), first_max_index(final)
         ops = []
         for _ in range(-(-max_ops // 4) * 4):
             active = i > 0
-            op = torch.where(active, get_byte(i, d) & 3, 0)
+            b = flat[i * row + pbase + d.clamp(0, band - 1)]
+            op = torch.where(active, b.to(torch.int64) & 3, 0)
             ops.append(op)
             i = torch.where(active & (op != 3), i - 1, i)
             d = torch.where(op == 2, d + 1, torch.where(op == 3, d - 1, d))
@@ -305,48 +427,9 @@ class BandedAligner:
         dev = qpacked.device
         shifts = torch.arange(16, dtype=torch.int32, device=dev) * 2
         qcodes = ((qpacked[:, :, None] >> shifts) & 3).reshape(P, W * 16)
-        score, begin, t_op, t_len, unterm = self._align_core(
+        return runs_vector(*self._align_core(
             qcodes.to(torch.uint8), qlen, bucket_ids, offsets, is_rc, width,
-            tb_mode="runs", wrap_star=wrap_star)
-
-        T = t_op.shape[1]
-        MR = min(self.MAX_ROW_RUNS, T)
-        col = torch.arange(T, dtype=torch.int64, device=dev)[None, :]
-        # query order = reversed traceback order; a chain split by the
-        # 63 cap leaves adjacent entries with the same op, merged here
-        codes = t_op.flip(1)
-        weights = t_len.flip(1)
-        nz = codes != 0
-        key = torch.where(nz, col * 4 + codes, -1)
-        prev_key = torch.cummax(torch.nn.functional.pad(
-            key[:, :-1], (1, 0), value=-1), dim=1).values
-        prev_code = torch.where(prev_key >= 0, prev_key & 3, 0)
-        isstart = nz & (codes != prev_code)
-        run_id = torch.cumsum(isstart, dim=1) - 1
-        n_runs = isstart.sum(dim=1)
-        # per-run length (summed) and op (one per run) by run id; column
-        # MR collects the entries past the row cap and the zeros
-        rid = torch.where(nz & (run_id < MR), run_id, MR)
-        acc = torch.zeros((2, P, MR + 1), dtype=torch.int64, device=dev)
-        rlen = acc[0].scatter_add_(1, rid, weights)[:, :MR]
-        rop = acc[1].scatter_(1, rid, codes)[:, :MR]
-        ridx = torch.arange(MR, dtype=torch.int64, device=dev)[None, :]
-        valid_run = ridx < n_runs.clamp_max(MR)[:, None]
-        max_rlen = torch.where(valid_run, rlen, 0).amax()
-        run16 = torch.where(valid_run, (rlen << 2) | rop, 0)
-        # rows' runs back to back in the shared budget; slot run_cap
-        # collects the invalid and overflowing ones
-        goff = torch.cumsum(n_runs, dim=0)
-        tgt = (goff - n_runs)[:, None] + ridx
-        tgt = torch.where(valid_run & (tgt < run_cap), tgt, run_cap)
-        flat = torch.zeros(run_cap + 1, dtype=torch.int64, device=dev)
-        flat.scatter_(0, tgt.reshape(-1), run16.reshape(-1))
-        flat2 = flat[:run_cap].reshape(run_cap // 2, 2)
-        runs_w = i64_to_i32(flat2[:, 0] | (flat2[:, 1] << 16))
-        hdr = torch.stack([goff[-1], n_runs.amax(), max_rlen,
-                           unterm.sum()]).to(torch.int32)
-        return torch.cat([hdr, score.to(torch.int32), begin.to(torch.int32),
-                          n_runs.to(torch.int32), runs_w])
+            tb_mode="runs", wrap_star=wrap_star), run_cap)
 
     # ------------------------------------------------------------------
     def _width(self, qlen, bucket_ids, offsets) -> np.ndarray:

@@ -7,9 +7,9 @@ Phases, each reported on its own line:
   1. environment: the card (nvidia-smi name and power limit), torch and
      CUDA versions, whether nvcc and triton are present; exits non-zero
      without a CUDA device;
-  2. build: the six CUDA kernels from bucketmap_tpu_torch/csrc, one
-     nvcc for sm_90a per source, all started together, and the C++ host
-     library from csrc/host with g++;
+  2. build: the seven CUDA kernels of the six sources in
+     bucketmap_tpu_torch/csrc, one nvcc for sm_90a per source, all
+     started together, and the C++ host library from csrc/host with g++;
   3. world: the bench world (bench.py's seeded repeat genome, index and
      simulated 300 bp reads), cached under .bench_cache/;
   4. main path: BucketMapPipeline(..., device="cuda").map_fastq over all
@@ -25,14 +25,24 @@ Phases, each reported on its own line:
      (exact against its plain version, and its device time and bound);
   6. align mode: BucketMapPipeline(..., align=True).map_fastq over the
      same reads, DP sub-batches of 16384 pairs; checks accuracy, CIGAR
-     lengths and that the DP kernel and every map-stage kernel launched;
-  7. the DP kernel against its plain version on the first 4096 located
-     pairs of phase 6 (exact), its device time and bound at the full
-     16384-pair sub-batch, and one whole align sub-batch as one call;
+     lengths and that the fused DP (dp_runs) and every map-stage kernel
+     launched;
+  7. the DP kernels on phase 6's first sub-batch: the packed-ops path
+     (BandedAligner.align_batch, the dp_fwd kernel and the per-cell
+     traceback) on its first 4096 located pairs, dp_fwd launched and its
+     scores those of dp_runs; dp_fwd and dp_runs against their plain
+     versions on those pairs (exact, times, bounds), dp_runs also at
+     band 128 on random pairs (both wrap rules) and at Q 2048, where the
+     strip lives in device scratch; at the full 16384-pair sub-batch
+     both kernels' device times and bounds, the whole sub-batch's
+     vector (unpack, windows, dp_runs, packing) word for word the one
+     dp_runs_plain gives, and that call's time on an idle device;
   8. the mesh step on torch.distributed (nccl, one rank, mesh (1, 1)):
      the staged coarse branch's two kernels against their plain versions
-     on phase 5's rows (exact, times; the chunk scan also at 32 samples),
-     one batch through the mesh step
+     on phase 5's rows (exact, times; the chunk scan also at 32 samples;
+     the presence gather also at the full batch and on ragged shapes:
+     widths 811, 300 and 100 words, 7 and 1001 samples, nq 1, 4 and 16,
+     repeated rows), one batch through the mesh step
      with each coarse path (word for word the single-device step of
      phase 5), then BucketMapPipeline(mesh=..., coarse_path="staged")
      over all reads: SAM byte for byte phase 4's, the accuracy floors,
@@ -73,15 +83,37 @@ COARSE_ROWS = 2048            # read-strands compared in the coarse check
 MIN_MAPPED, MIN_CORRECT = 97.0, 95.0
 DP_PAIRS = 4096               # located pairs in the DP check
 MAP_KERNELS = ("coarse_score", "fine_window", "tally")
-ALIGN_KERNELS = MAP_KERNELS + ("dp_fwd",)
+ALIGN_KERNELS = MAP_KERNELS + ("dp_runs",)
 STAGED_KERNELS = ("presence_gather", "chunk_scan", "fine_window", "tally")
 # bounds: the published H100 SXM HBM3 rate, and the int32 rate of its CUDA
 # cores (132 SMs x 64 INT32 lanes x 1.98 GHz boost clock)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 16.7e12
 L2_FLUSH_BYTES = 256 << 20    # written before a cold launch: > the 50 MB L2
-DP_OPS_PER_CELL = 15          # int ops of one dp_fwd cell's recurrence
+DP_OPS_PER_CELL = 15          # int ops of one DP cell's recurrence
+SCRATCH_Q = 2048              # a query width whose band-128 strip needs scratch
 WIDE_S = 32                   # samples per read-strand of the six-plane checks
+
+
+def keep_first_sub_batch(al, run):
+    """run() with the aligner's _sub_batch wrapped so that its first
+    result is kept: (run()'s result, (qcodes host array, (qlen, bucket_ids,
+    offsets, is_rc, width) on the card)) of the first DP sub-batch."""
+    first = []
+    sub_batch = al._sub_batch
+
+    def keep(*a):
+        out = sub_batch(*a)
+        if not first:
+            first.append(out)
+        return out
+
+    al._sub_batch = keep
+    try:
+        res = run()
+    finally:
+        al._sub_batch = sub_batch
+    return res, first[0]
 
 
 def log(msg: str) -> None:
@@ -242,6 +274,78 @@ def dp_bound(textp, qcodes, band: int):
             P * Q * band * DP_OPS_PER_CELL)
 
 
+def runs_bound(textp, qcodes, qlen, band: int, mr: int):
+    """(bytes, int ops) of the fused DP: the inputs once, the five head
+    rows and MR runs per pair; DP_OPS_PER_CELL per cell of the rows the
+    traceback can reach (1..min(qlen, Q)) of every pair."""
+    P, W = textp.shape
+    Q = qcodes.shape[1]
+    rows = int(qlen.clamp(0, Q).sum())
+    return (P * W + P * Q + 8 * P + 5 * 4 * P + P * mr * 4,
+            rows * band * DP_OPS_PER_CELL)
+
+
+def random_pairs(torch, dev, P: int, Q: int, rate: float, seed: int):
+    """(textp, qcodes, qlen, width, band, lo) on the card for the DP
+    checks: random windows; per row, by row index mod 4, a copy of the
+    window's first Q bases with 3% substitutions, a query that inserts
+    one base after every two of its window from position 80 on (one run
+    per base and a half), a random query, or a copy with a window cut
+    short; qlen Q/2..Q (Q for the inserting rows)."""
+    from bucketmap_tpu_torch.ops.align import band_geometry
+
+    g = torch.Generator().manual_seed(seed)
+    band, lo = band_geometry(Q, rate)
+    text = torch.randint(0, 4, (P, Q + band), generator=g)
+    kind = torch.arange(P) % 4
+    qlen = torch.randint(Q // 2, Q + 1, (P,), generator=g)
+    qlen[kind == 1] = Q
+    m = torch.arange(Q)
+    ins = text[:, 80 + 2 * (m // 3) + (m % 3 != 0).long()]
+    ins = torch.where(m % 3 == 2, (ins + 2) % 4, ins)
+    sub = torch.rand((P, Q), generator=g) < 0.03
+    copy = torch.where(sub, (text[:, :Q] + torch.randint(
+        1, 4, (P, Q), generator=g)) % 4, text[:, :Q])
+    q = torch.where((kind == 1)[:, None], ins, copy)
+    q = torch.where((kind == 2)[:, None],
+                    torch.randint(0, 4, (P, Q), generator=g), q)
+    width = torch.minimum(qlen + 1 + (qlen * rate).long(),
+                          torch.tensor(Q + band))
+    width = torch.where(kind == 3, torch.randint(0, Q, (P,), generator=g),
+                        width)
+    text = torch.where(torch.arange(Q + band) < width[:, None], text, 4)
+    textp = torch.nn.functional.pad(text, (lo, 0), value=4)
+    return (textp.to(torch.uint8).to(dev), q.to(torch.uint8).to(dev),
+            qlen.to(torch.int32).to(dev), width.to(torch.int32).to(dev),
+            band, lo)
+
+
+def dp_runs_shape_checks(torch, dev) -> None:
+    """dp_runs against dp_runs_plain, exactly, on random pairs at band
+    128 (Q 256) with each wrap rule, and at Q SCRATCH_Q, whose strip
+    lives in device scratch."""
+    from bucketmap_tpu_torch import kernels
+    from bucketmap_tpu_torch.ops.align import dp_runs, dp_runs_plain
+
+    for P, Q, seed in ((2048, 256, 1), (256, SCRATCH_Q, 2)):
+        rp = random_pairs(torch, dev, P, Q, 0.1, seed)
+        textp, band = rp[0], rp[4]
+        scratch = kernels.library().bm_dp_runs_scratch_bytes(
+            P, textp.shape[1], Q, band)
+        if (scratch > 0) != (Q == SCRATCH_Q):
+            raise RuntimeError(f"dp_runs at Q {Q}, band {band}: scratch "
+                               f"bytes {scratch}")
+        for wrap in ((True, False) if Q < SCRATCH_Q else (False,)):
+            head = dp_runs_plain(*rp, wrap)[0]
+            check_equal(torch, "dp_runs", f"{P} random pairs, Q {Q}, band "
+                        f"{band}, wrap_star {wrap}, strip in "
+                        f"{'device scratch' if scratch else 'shared memory'}"
+                        f" (runs per row up to {int(head[2].max())}, "
+                        f"{int(head[4].sum())} unterminated)",
+                        lambda: dp_runs(*rp, wrap),
+                        lambda: dp_runs_plain(*rp, wrap))
+
+
 def bound_of(nbytes: int, nops: int):
     """(least ms, "bytes" or "operations") on the H100."""
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -395,6 +499,25 @@ def mesh_phase(torch, timer, index, fastq, gt, sam, dev, rows_all, packed,
          f"{COARSE_ROWS} read-strands x {s} samples x {w} words",
          scan_bound(presence, s)),
     ]
+    # the presence gather at the full batch and on ragged shapes
+    check_equal(torch, "presence_gather", f"the full batch "
+                f"({rows_all.shape[0]} samples x {rows_all.shape[1]} rows x "
+                f"{w} words)", lambda: (presence_gather(table, rows_all),),
+                lambda: (presence_gather_plain(table, rows_all),))
+    gc.collect()
+    torch.cuda.empty_cache()
+    for wr, R, nq, rep in ((w, 1001, 4, True), (300, 1001, 1, False),
+                           (100, 7, 16, False), (w, 1001, 16, True)):
+        tr = table[:, :wr].contiguous()
+        rr = torch.cat([rows_all[i * R:(i + 1) * R] for i in range(4)],
+                       dim=1)[:, :nq].contiguous()
+        if rep:
+            rr[::3] = rr[0]
+        check_equal(torch, "presence_gather", f"{R} samples x {nq} rows x "
+                    f"{wr} words{', every third row the first' if rep else ''}",
+                    lambda: (presence_gather(tr, rr),),
+                    lambda: (presence_gather_plain(tr, rr),))
+    del tr, rr
     B2 = rows_all.shape[0] // s
     full_size(torch, timer, "presence_gather",
               f"the full batch ({B2} read-strands)",
@@ -624,7 +747,10 @@ def main() -> int:
     from bucketmap_tpu_torch import kernels, world
     from bucketmap_tpu_torch.device import upload_u32
     from bucketmap_tpu_torch.mapper.pipeline import BucketMapPipeline
-    from bucketmap_tpu_torch.ops.align import dp_fwd, dp_fwd_plain, pack_qcodes
+    from bucketmap_tpu_torch.ops.align import (MAX_ROW_RUNS, dp_fwd,
+                                               dp_fwd_plain, dp_runs,
+                                               dp_runs_plain, pack_qcodes,
+                                               run_jumps, runs_vector)
     from bucketmap_tpu_torch.ops.coarse import coarse_score, coarse_score_plain
     from bucketmap_tpu_torch.parallel import distributed
     from bucketmap_tpu_torch.ops.encoding import unpack_reads
@@ -777,25 +903,17 @@ def main() -> int:
     log(f"[init] align pipeline ready in {time.perf_counter() - t0:.1f} s "
         f"({torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated)")
     al = pipe.aligner
-    first_sub = []
-    sub_batch = al._sub_batch
-
-    def keep_first(*a):
-        out = sub_batch(*a)
-        if not first_sub:
-            first_sub.append(out)
-        return out
-
-    al._sub_batch = keep_first
     sam_al = os.path.join(HERE, ".bench_cache", "chip_smoke_align.sam")
-    torch.cuda.reset_peak_memory_stats(dev)
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    stats = pipe.map_fastq(fastq, sam_al)
-    torch.cuda.synchronize()
-    align_s = time.perf_counter() - t0
-    al_launches = dict(kernels.LAUNCHES)
-    al._sub_batch = sub_batch
+
+    def run_align():
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        stats = pipe.map_fastq(fastq, sam_al)
+        torch.cuda.synchronize()
+        return stats, time.perf_counter() - t0, dict(kernels.LAUNCHES)
+
+    (stats, align_s, al_launches), first = keep_first_sub_batch(al, run_align)
     mapped, correct = world.score_sam(sam_al, gt, index)
     n_rec, n_star, bad = check_cigars(sam_al)
     log(f"[align] {stats.num_reads} reads in {align_s:.2f} s = "
@@ -822,38 +940,73 @@ def main() -> int:
     if idle:
         raise RuntimeError(f"align path never launched: {idle}")
 
-    # ---- 7. the DP kernel on the main path's pairs ----------------------
-    qc, (qlen, bids, offs, is_rc, width) = first_sub[0]
+    # ---- 7. the DP kernels on the main path's pairs ---------------------
+    qc, (qlen, bids, offs, is_rc, width) = first
+    P = qc.shape[0]
     Qp = -(-qc.shape[1] // 16) * 16            # the runs path's query width
-    qfull = torch.zeros((qc.shape[0], Qp), dtype=torch.uint8, device=dev)
+    qfull = torch.zeros((P, Qp), dtype=torch.uint8, device=dev)
     qfull[:, :qc.shape[1]] = torch.from_numpy(qc.astype("uint8")).to(dev)
     textp, band, lo = al._text_windows(Qp, bids, offs, is_rc, width)
+    mr = min(MAX_ROW_RUNS, run_jumps(band))
     n = DP_PAIRS
     dargs = (textp[:n].contiguous(), qfull[:n].contiguous(),
              qlen[:n].contiguous(), width[:n].contiguous(), band, lo)
+    # the packed-ops path, which the runs path re-runs a sub-batch through
+    # when its run budget overflows
+    host = [t[:n].cpu().numpy() for t in (qlen, bids, offs, is_rc)]
+    kernels.reset_launches()
+    sc_ops = al.align_batch(qc[:n], *host)[0]
+    torch.cuda.synchronize()
+    ops_launches = dict(kernels.LAUNCHES)
+    same = torch.equal(torch.from_numpy(sc_ops), dp_runs(*dargs, True)[0][0]
+                       .cpu())
+    log(f"[align] packed-ops path (align_batch) on {n} located pairs: "
+        f"launches {ops_launches}; scores equal to dp_runs's {same}")
+    if ops_launches["dp_fwd"] == 0 or not same:
+        raise RuntimeError("the packed-ops path did not launch dp_fwd or "
+                           "its scores differ from dp_runs's")
+    shape = f"{n} located pairs, Q {Qp}, band {band}, lo {lo}"
     report.append(check_kernel(
         torch, timer, "dp_fwd", "bucketmap_tpu_torch/csrc/dp_fwd.cu",
         "bucketmap_tpu/ops/align.py:95", lambda: dp_fwd(*dargs),
-        lambda: dp_fwd_plain(*dargs),
-        f"{n} located pairs, Q {Qp}, band {band}, lo {lo}",
-        dp_bound(dargs[0], dargs[1], band), al_launches["dp_fwd"],
+        lambda: dp_fwd_plain(*dargs), shape,
+        dp_bound(dargs[0], dargs[1], band), ops_launches["dp_fwd"],
         launches["dp_fwd"]))
+    report.append(check_kernel(
+        torch, timer, "dp_runs", "bucketmap_tpu_torch/csrc/dp_fwd.cu",
+        "bucketmap_tpu/ops/align.py:95", lambda: dp_runs(*dargs, True),
+        lambda: dp_runs_plain(*dargs, True), f"{shape}, MR {mr}",
+        runs_bound(*dargs[:3], band, mr), al_launches["dp_runs"],
+        launches["dp_runs"]))
+    dp_runs_shape_checks(torch, dev)
     full = (textp, qfull, qlen, width, band, lo)
-    full_size(torch, timer, "dp_fwd", f"the full sub-batch ({qc.shape[0]} "
-              f"pairs)", lambda: dp_fwd(*full), dp_bound(textp, qfull, band))
-    dp_full_ms = timer.ms(lambda: dp_fwd(*full), reps=5)
+    what = f"the full sub-batch ({P} pairs)"
+    full_size(torch, timer, "dp_fwd", what, lambda: dp_fwd(*full),
+              dp_bound(textp, qfull, band))
+    full_size(torch, timer, "dp_runs", what, lambda: dp_runs(*full, True),
+              runs_bound(textp, qfull, qlen, band, mr))
+    qpk = upload_u32(pack_qcodes(qc), dev)
+    run_cap = -(-al.run_cap_per_pair * P // 2) * 2
+    vec = al._align_runs(qpk, qlen, bids, offs, is_rc, width, run_cap=run_cap)
+    want = runs_vector(*dp_runs_plain(*full, True), run_cap)
+    equal = torch.equal(vec, want)
+    log(f"[kernel] dp_runs: {what}, as the sub-batch's vector (header "
+        f"{vec[:4].tolist()}, {vec.numel()} words): equal to dp_runs_plain's "
+        f"{equal}")
+    if not equal:
+        raise RuntimeError("the sub-batch's vector differs from the one "
+                           "dp_runs_plain gives")
+    runs_full_ms = timer.ms(lambda: dp_runs(*full, True), reps=5)
     win_ms = call_ms(torch, lambda: al._text_windows(
         Qp, bids, offs, is_rc, width), reps=5, warmup=1)
-    qpk = upload_u32(pack_qcodes(qc), dev)
-    run_cap = al.run_cap_per_pair * qc.shape[0]
     sub_ms = call_ms(torch, lambda: al._align_runs(
         qpk, qlen, bids, offs, is_rc, width, run_cap=run_cap), reps=5,
         warmup=1)
-    log(f"[kernel] one whole align sub-batch ({qc.shape[0]} pairs; unpack, "
-        f"windows, DP, run traceback, RLE), one call on an idle device: "
-        f"{sub_ms:.4f} ms, of which windows {win_ms:.4f} ms; DP on the "
-        f"device {dp_full_ms:.4f} ms warm")
-    del pipe, al, first_sub, qc, qfull, textp, dargs, full, qpk
+    log(f"[kernel] one whole align sub-batch ({P} pairs; unpack, windows, "
+        f"fused DP + traceback + RLE, packing), one call on an idle device: "
+        f"{sub_ms:.4f} ms, of which windows {win_ms:.4f} ms; dp_runs on the "
+        f"device {runs_full_ms:.4f} ms warm")
+    del pipe, al, first, qc, qfull, textp, dargs, full, qpk, vec, want
     gc.collect()
     torch.cuda.empty_cache()
 

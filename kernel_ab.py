@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""The coarse-score, fine-window and tally kernels of this tree against
-another tree's, on the main path's own inputs, on one NVIDIA GPU.
+"""The kernels of this tree against another tree's, on the main path's
+own inputs, on one NVIDIA GPU.
 
     python3 kernel_ab.py --parent DIR [--genome-mbp 1700]
 
@@ -25,7 +25,15 @@ read as float32) times the access pattern without the kernel. The tally
 runs on the chunk's flags and with every proposal valid. Last, the
 host's time per call of this tree's wrappers, and one call between two
 events on an idle device, as the runs before the redesign timed the
-kernels. The last line of the output is one JSON object.
+kernels. The presence gather of the staged branch runs at the full
+batch (the same sample rows, L2 flushed). The align stage runs on the
+first 16,384-pair sub-batch of the batch's located pairs (align mode
+over the batch): the whole device-RLE sub-batch (`_align_runs`) as one
+call on an idle device, each tree's own aligner (its ops/align.py on its
+kernel library), the vectors word for word equal; the DP body of each
+tree's `dp_fwd` (the same function: every direction byte and the final
+row) on the device with the L2 flushed; and this tree's fused `dp_runs`
+beside them. The last line of the output is one JSON object.
 """
 
 from __future__ import annotations
@@ -49,6 +57,27 @@ def load_kernels(tree: str, name: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def load_align(tree: str, kernels_mod):
+    """A tree's ops/align.py as module `tree_align`, its kernels those of
+    kernels_mod (the rest of the package is this tree's)."""
+    spec = importlib.util.spec_from_file_location(
+        "tree_align", os.path.join(tree, "bucketmap_tpu_torch", "ops",
+                                   "align.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.kernels = kernels_mod
+    return mod
+
+
+def in_turns(run_of, fn):
+    """fn(run) for the other tree, this tree, this tree, the other tree:
+    {side: [time, time]}."""
+    times = {"parent": [], "this": []}
+    for side in ("parent", "this", "this", "parent"):
+        times[side].append(fn(run_of[side]))
+    return times
 
 
 def coarse_runner(torch, lib, table, rows, bound: int, s: int):
@@ -86,10 +115,14 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
-    from chip_smoke import DeviceTimer, call_ms, card_name_and_limit, log
+    from chip_smoke import (DeviceTimer, call_ms, card_name_and_limit,
+                            keep_first_sub_batch, log)
     from bucketmap_tpu_torch import kernels, world
+    from bucketmap_tpu_torch.device import upload_u32
     from bucketmap_tpu_torch.mapper.pipeline import BucketMapPipeline
-    from bucketmap_tpu_torch.ops.coarse import coarse_score_plain
+    from bucketmap_tpu_torch.ops import align
+    from bucketmap_tpu_torch.ops.coarse import (coarse_score_plain,
+                                                presence_gather_plain)
     from bucketmap_tpu_torch.ops.encoding import unpack_reads
     from bucketmap_tpu_torch.ops.vote import (fine_window, fine_window_plain,
                                               tally, tally_plain)
@@ -97,9 +130,9 @@ def main() -> int:
     card = card_name_and_limit()
     log(card)
     dev = torch.device("cuda", 0)
-    libs = {"this": kernels.library(),
-            "parent": load_kernels(os.path.abspath(args.parent),
-                                   "parent_kernels").library()}
+    parent = os.path.abspath(args.parent)
+    parent_kernels = load_kernels(parent, "parent_kernels")
+    libs = {"this": kernels.library(), "parent": parent_kernels.library()}
 
     index, fastq, _, world_s = world.bench_world(
         os.path.join(HERE, ".bench_cache"), args.genome_mbp, BATCH)
@@ -248,6 +281,81 @@ def main() -> int:
             f"ms per call; one call on an idle device "
             f"{res['one_call_ms']:.4f} ms")
         result[kname] = res
+
+    # the presence gather at the full batch, L2 flushed
+    R, nq = rows_all.shape
+    w = table.shape[1]
+    want = presence_gather_plain(table, rows_all)
+    runs = {}
+    for side, lib in libs.items():
+        out = torch.empty((R, w), dtype=torch.int32, device=dev)
+
+        def run(lib=lib, out=out):
+            err = lib.bm_presence_gather(table.data_ptr(), w,
+                                         rows_all.data_ptr(), R, nq,
+                                         out.data_ptr(), stream)
+            if err:
+                raise RuntimeError(f"bm_presence_gather: cudaError {err}")
+            return out
+        if not torch.equal(run(), want):
+            raise RuntimeError(f"presence_gather ({side}) disagrees with its "
+                               f"plain version")
+        runs[side] = run
+    del want
+    times = in_turns(runs, lambda r: timer.ms(r, reps=5, cold=True))
+    result["presence_gather"] = {"samples": R, "cold": times}
+    log(f"[presence_gather] full batch, {R} samples x {nq} rows x {w} words, "
+        f"L2 flushed: device ms this tree {times['this']}, other tree "
+        f"{times['parent']}")
+    del runs, out, pipe, dm, lanes, vargs, wargs, tgt_idx, targs
+    torch.cuda.empty_cache()
+
+    # the align stage on the batch's first 16,384-pair sub-batch
+    al_pipe = BucketMapPipeline(index, device=dev, align=True,
+                                batch_size=BATCH, pair_batch=BATCH)
+    al = al_pipe.aligner
+    _, (qc, args_dev) = keep_first_sub_batch(al, lambda: al_pipe.map_fastq(
+        fastq, os.path.join(HERE, ".bench_cache", "kernel_ab_align.sam")))
+    parent_align = load_align(parent, parent_kernels)
+    aligners = {"this": al,
+                "parent": parent_align.BandedAligner(index, dev,
+                                                     pair_batch=BATCH)}
+    P = qc.shape[0]
+    qpk = upload_u32(align.pack_qcodes(qc), dev)
+    run_cap = -(-al.run_cap_per_pair * P // 2) * 2
+    sub = {side: (lambda a=a: a._align_runs(qpk, *args_dev, run_cap=run_cap))
+           for side, a in aligners.items()}
+    vecs = {side: run() for side, run in sub.items()}
+    if not torch.equal(vecs["this"], vecs["parent"]):
+        raise RuntimeError("the two trees' sub-batch vectors differ")
+    times = in_turns(sub, lambda r: call_ms(torch, r, reps=5, warmup=1))
+    result["align_sub_batch"] = {"pairs": P, "one_call": times,
+                                 "header": vecs["this"][:4].tolist()}
+    log(f"[align] one whole sub-batch ({P} pairs), one call on an idle "
+        f"device: ms this tree {times['this']}, other tree "
+        f"{times['parent']}; header {vecs['this'][:4].tolist()}")
+
+    # each tree's DP body (dp_fwd) and this tree's fused DP, L2 flushed
+    qlen, bids, offs, is_rc, width = args_dev
+    Qp = qpk.shape[1] * 16
+    qfull = torch.zeros((P, Qp), dtype=torch.uint8, device=dev)
+    qfull[:, :qc.shape[1]] = torch.from_numpy(qc.astype("uint8")).to(dev)
+    textp, band, lo = al._text_windows(Qp, bids, offs, is_rc, width)
+    full = (textp, qfull, qlen, width, band, lo)
+    fwd = {"this": lambda: align.dp_fwd(*full),
+           "parent": lambda: parent_align.dp_fwd(*full)}
+    got = {side: run() for side, run in fwd.items()}
+    if not all(torch.equal(a, b) for a, b in zip(got["this"],
+                                                  got["parent"])):
+        raise RuntimeError("the two trees' dp_fwd outputs differ")
+    del got
+    times = in_turns(fwd, lambda r: timer.ms(r, reps=5, cold=True))
+    fused = timer.ms(lambda: align.dp_runs(*full, True), reps=5, cold=True)
+    result["dp_fwd"] = {"pairs": P, "Q": Qp, "band": band, "cold": times,
+                        "dp_runs_cold": fused}
+    log(f"[dp_fwd] {P} pairs, Q {Qp}, band {band}, L2 flushed: device ms "
+        f"this tree {times['this']}, other tree {times['parent']}; this "
+        f"tree's dp_runs {fused:.4f}")
     print(json.dumps(result), flush=True)
     return 0
 

@@ -3,9 +3,12 @@
 
 Inputs are made with numpy from fixed seeds and fed to both packages:
 band geometry and query packing, window extraction at the bucket edges,
-the forward DP against the Pallas kernel in interpret mode, and the
+the forward DP against the Pallas kernel in interpret mode, the fused
+DP + run-jump traceback + RLE against the JAX run traceback, and the
 whole aligner (packed ops, CIGARs, the device-RLE vector, the overflow
 fallback and the size_t-wrap rows)."""
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -147,6 +150,14 @@ def test_dp_fwd_refuses_a_non_cuda_device():
         align.dp_fwd(t, q, n, n, 32, 16)
 
 
+def test_dp_runs_refuses_a_non_cuda_device():
+    t = torch.zeros((4, 64), dtype=torch.uint8, device="meta")
+    q = torch.zeros((4, 16), dtype=torch.uint8, device="meta")
+    n = torch.zeros(4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        align.dp_runs(t, q, n, n, 32, 16, True)
+
+
 def _pairs(world, n, seed, garbage=0.0):
     """n (query, bucket, offset, strand) pairs: mutated genome fragments of
     varied length, some at the packed bucket end, some reverse strand,
@@ -174,10 +185,106 @@ def _pairs(world, n, seed, garbage=0.0):
     return qcodes, qlen, buckets, offsets, is_rc
 
 
-def _aligners(index, pair_batch):
+def _aligners(index, pair_batch, rate=None):
+    if rate is not None:
+        index = dataclasses.replace(index, config=dataclasses.replace(
+            index.config, indel_rate=rate))
     return (jax_align.BandedAligner(index, pair_batch=pair_batch),
             align.BandedAligner(port_index(index), "cpu",
                                 pair_batch=pair_batch))
+
+
+def _run_pairs(world, Q, n, seed):
+    """n forward or reverse pairs of query width Q for the run traceback:
+    mutated genome fragments (qlen Q/2..Q), random queries, every fifth
+    row a query that inserts one base after every two of its window from
+    text position 80 on (one run per base and a half: more than
+    MAX_ROW_RUNS at Q 256), and windows at the bucket end too short for
+    the query (no valid end cell: the traceback cannot move)."""
+    index, bases = world
+    rng = np.random.default_rng(seed)
+    buckets = rng.integers(0, index.n_buckets, n).astype(np.int32)
+    offsets = rng.integers(1, 3000, n).astype(np.int32)
+    is_rc = rng.random(n) < 0.4
+    qlen = np.where(rng.random(n) < 0.6, Q, rng.integers(Q // 2, Q, n))
+    qlen = qlen.astype(np.int32)
+    qcodes = np.zeros((n, Q), np.uint8)
+    for i in range(n):
+        text = bases[buckets[i], offsets[i]:offsets[i] + 2 * Q]
+        if i % 5 == 4:
+            is_rc[i], qlen[i] = False, Q
+            a = 80 + 2 * np.arange(Q // 3 + 1)
+            frag = np.stack([text[a], text[a + 1], (text[a + 1] + 2) % 4],
+                            1).reshape(-1)[:Q]
+        elif i % 5 == 3:
+            frag = rng.integers(0, 4, qlen[i])
+        else:
+            frag = _mutate(rng, text[:qlen[i]], int(rng.integers(0, 8)))
+            if is_rc[i]:
+                frag = 3 - frag[::-1]
+        qcodes[i, :qlen[i]] = frag
+    offsets[2::10] = bases.shape[1] - rng.integers(20, Q // 2,
+                                                   len(offsets[2::10]))
+    return qcodes, qlen, buckets, offsets, is_rc
+
+
+def _merged_runs(ops, lens):
+    """Runs in query order of one row's run jumps (traceback order), the
+    jumps of one op next to each other merged: [(op, length), ...]."""
+    runs = []
+    for op, n in zip(ops[::-1].tolist(), lens[::-1].tolist()):
+        if op == 0:
+            continue
+        if runs and runs[-1][0] == op:
+            runs[-1][1] += n
+        else:
+            runs.append([op, n])
+    return [tuple(r) for r in runs]
+
+
+@pytest.mark.parametrize("wrap_star", [True, False])
+@pytest.mark.parametrize("Q,rate", [(150, 0.02), (304, 0.02), (256, 0.1)])
+def test_dp_runs_plain_matches_jax_run_traceback(world, Q, rate, wrap_star):
+    """dp_runs_plain against the JAX _align_core(tb_mode="runs"): score,
+    begin, unterminated, and the merged runs (the first MR in query
+    order, their count, the longest kept)."""
+    index, _ = world
+    band, lo = align.band_geometry(Q, rate)
+    assert band == {150: 32, 304: 48, 256: 128}[Q]
+    args = _run_pairs(world, Q, 30, seed=Q + wrap_star)
+    ref, port = _aligners(index, 32, rate)
+    qcodes, qlen, buckets, offsets, is_rc = args
+    width = port._width(qlen, buckets, offsets)
+    sc, bg, t_op, t_len, unterm = (np.asarray(a) for a in ref._align_core(
+        ref.buckets_tiled, jnp.asarray(qcodes), jnp.asarray(qlen),
+        jnp.asarray(buckets), jnp.asarray(offsets), jnp.asarray(is_rc),
+        jnp.asarray(width), tb_mode="runs", wrap_star=wrap_star))
+    t = [torch.from_numpy(a) for a in (qlen, buckets, offsets, is_rc, width)]
+    textp, band, lo = port._text_windows(Q, t[1], t[2], t[3], t[4])
+    head, runs = align.dp_runs_plain(textp, torch.from_numpy(qcodes), t[0],
+                                     t[4], band, lo, wrap_star)
+    head, runs = head.numpy(), runs.numpy()
+    MR = min(align.MAX_ROW_RUNS, align.run_jumps(band))
+    assert runs.shape == (30, MR)
+    np.testing.assert_array_equal(head[0], sc)
+    np.testing.assert_array_equal(head[1], bg)
+    np.testing.assert_array_equal(head[4], unterm)
+    longest = 0
+    for i in range(30):
+        want = _merged_runs(t_op[i], t_len[i])
+        assert head[2, i] == len(want)
+        kept = want[:MR]
+        assert runs[i, :len(kept)].tolist() == [n << 2 | op for op, n in kept]
+        assert not runs[i, len(kept):].any()
+        assert head[3, i] == max((n for _, n in kept), default=0)
+        longest = max(longest, head[3, i])
+    # the inputs reach a chain split by the 63 cap, and without the wrap
+    # rule an unfinished traceback and, at band 128, a row past the cap
+    assert longest > 63
+    assert (t_len == 63).any()
+    if not wrap_star:
+        assert unterm.any()
+        assert band < 128 or (head[2] > MR).any()
 
 
 def test_aligner_ops_and_cigars_match_jax(world):
@@ -232,13 +339,21 @@ def test_runs_stream_matches_jax(world, wrap_star, cap):
         assert any(w[2] > 0 for w in low)
 
 
-@pytest.mark.parametrize("Q,run_cap", [(150, 256), (150, 8), (304, 64)])
+@pytest.mark.parametrize("Q,run_cap", [(150, 256), (150, 8), (304, 64),
+                                       (256, 64)])
 def test_runs_vector_matches_jax_word_for_word(world, Q, run_cap):
+    """Q 150 and 304 at the default indel rate (bands 32 and 48); Q 256 at
+    rate 0.1 (band 128) with rows past MAX_ROW_RUNS."""
     index, _ = world
-    qcodes, qlen, buckets, offsets, is_rc = _pairs(world, 32, seed=Q + run_cap,
-                                                   garbage=0.2)
-    qcodes = np.pad(qcodes, ((0, 0), (0, Q - qcodes.shape[1])))
-    ref, port = _aligners(index, 32)
+    rate = 0.1 if Q == 256 else None
+    if rate:
+        qcodes, qlen, buckets, offsets, is_rc = _run_pairs(world, Q, 32,
+                                                           seed=Q + run_cap)
+    else:
+        qcodes, qlen, buckets, offsets, is_rc = _pairs(
+            world, 32, seed=Q + run_cap, garbage=0.2)
+        qcodes = np.pad(qcodes, ((0, 0), (0, Q - qcodes.shape[1])))
+    ref, port = _aligners(index, 32, rate)
     width = port._width(qlen, buckets, offsets)
     qp = align.pack_qcodes(qcodes)
     want = np.asarray(ref._align_runs(
@@ -253,3 +368,5 @@ def test_runs_vector_matches_jax_word_for_word(world, Q, run_cap):
     np.testing.assert_array_equal(got.numpy(), want)
     if run_cap == 8:
         assert want[0] > run_cap      # the overflow the header flags
+    if rate:
+        assert want[1] > align.MAX_ROW_RUNS and want[3] > 0
