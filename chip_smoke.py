@@ -301,7 +301,8 @@ def random_pairs(torch, dev, P: int, Q: int, rate: float, seed: int):
     qlen = torch.randint(Q // 2, Q + 1, (P,), generator=g)
     qlen[kind == 1] = Q
     m = torch.arange(Q)
-    ins = text[:, 80 + 2 * (m // 3) + (m % 3 != 0).long()]
+    ins = text[:, (80 + 2 * (m // 3) + (m % 3 != 0).long())
+               .clamp_max(Q + band - 1)]
     ins = torch.where(m % 3 == 2, (ins + 2) % 4, ins)
     sub = torch.rand((P, Q), generator=g) < 0.03
     copy = torch.where(sub, (text[:, :Q] + torch.randint(
