@@ -24,37 +24,41 @@
 //
 // bm_dp_fwd writes every direction byte to device memory ((Q+1) x band
 // per pair) and the final row: the packed-ops path's per-cell traceback
-// reads them there. bm_dp_runs keeps the pair's direction strip (rows
-// 1..min(qlen, Q), band bytes each) in shared memory, or, where the strip
-// cannot fit beside the block's other strip, in a per-pair slice of a
-// device scratch. After the last row one lane of the pair takes the
-// final row's max (the smallest d at it), walks at most T2 run jumps on
-// the strip (a jump consumes a whole same-direction chain, at most 63
-// cells), merges the jumps a 63-cap split left with the same op, and
-// writes only the score, the begin, the run count, the first MR merged
-// runs in query order as length << 2 | op, the longest of those and
-// the unterminated flag. wrap_star starts rows with score < -60 at
-// i = 0 (an empty traceback). The strip is read at d clamped to the
-// band; d itself is not clamped.
+// reads them there. bm_dp_runs keeps only each cell's direction (2 bits)
+// of rows 1..min(qlen, Q) in shared memory, or, where that strip cannot
+// fit, in a per-warp slice of a device scratch. After the last row one
+// lane of the pair takes the final row's max (the smallest d at it) and
+// walks the path cell by cell, counting what the run-jump traceback
+// would jump: a jump takes a same-direction chain whole, at most 63
+// cells (the byte's run is the chain's length so far, capped at 63), so
+// a chain of n cells is ceil(n / 63) jumps, and the walk stops where T2
+// jumps end. Chains are the merged runs (a 63-cap split leaves two jumps
+// of one op, merged). It writes only the score, the begin, the run
+// count, the first MR runs in query order as length << 2 | op, the
+// longest of those and the unterminated flag. wrap_star starts rows with
+// score < -60 at i = 0 (an empty walk). The strip is read at d clamped
+// to the band; d itself is not clamped.
 //
 // What bounds it on the H100: each pair is a dependent chain of rows,
-// and every row has two prefix scans across the band, so the DP is
-// bound by the latency of its in-row scans and by operation issue, not
-// by memory; the direction bytes (237 MB per 16,384 pairs at Q 304,
-// band 48) were the only large traffic, and bm_dp_runs never writes
-// them.
+// and every row has a prefix scan across the band (two in bm_dp_fwd), so
+// the DP is bound by operation issue and by the latency of the in-row
+// scans, not by memory; the direction bytes (237 MB per 16,384 pairs at
+// Q 304, band 48) were the only large traffic, and bm_dp_runs writes
+// none of them.
 //
 // Design: L lanes per pair, C consecutive cells per lane (d = C l + c):
 // 16 x 1..4 for band <= 64 (two pairs per warp), 32 x 3..4 above, so a
 // compiled kernel per (L, C) serves any band up to 128 with `band` and
 // `lo` given at run time. The max-plus scan runs serially over a lane's
 // C cells, then as a log2(L)-step shuffle scan over the pair's lanes;
-// the up source of a lane's last cell is one shuffle down. The last
-// non-left cell comes from one ballot per cell slot instead of a second
-// shuffle scan. The pair's text window and query codes sit in shared
-// memory as bytes. bm_dp_runs runs one warp per block, so a block holds
-// one or two strips (14.6 KB each at Q 304, band 48) and several blocks
-// share an SM.
+// the up source of a lane's last cell is one shuffle down. In bm_dp_fwd
+// the last non-left cell comes from one ballot per cell slot instead of
+// a second shuffle scan. bm_dp_runs needs no run lengths, so its rows
+// skip that work; two ballots per cell slot give the warp's direction
+// bits, and lane 0 stores them, C x 8 bytes per row for the warp's pairs
+// (7.3 KB per warp at Q 304, band 48, a quarter of a byte strip), so
+// ~24 one-warp blocks share an SM where byte strips allowed 7. The
+// pair's text window and query codes sit in shared memory as bytes.
 
 #include <climits>
 #include <cstdint>
@@ -78,15 +82,17 @@ struct Group {
         below(((1u << lane) - 1u) & ~((1u << (lane - lane % L)) - 1u)) {}
 };
 
-// The DP rows 1..n_rows of one pair on its L lanes; store(i, d, byte)
-// takes every direction byte of a cell d < band. prev/fin come in as
-// row 0 and go out as the last row computed and the row i == ql.
-template <int L, int C, class Store>
+// The DP rows 1..n_rows of one pair on its L lanes. With kRuns, every
+// cell's byte (direction and run) goes to sink.cell(i, d, byte) for
+// d < band; without, only the directions, as the warp's ballots
+// sink.row(i, bit0, bit1) (bit l' of bitN[c] is bit N of the direction of
+// lane l''s cell c). fin comes out as the row i == ql.
+template <int L, int C, bool kRuns, class Sink>
 __device__ __forceinline__ void dp_rows(const uint8_t* s_text,
                                         const uint8_t* s_q, int n_rows,
                                         int wid, int ql, int band, int lo,
                                         const Group<L>& gr, int (&fin)[C],
-                                        Store store) {
+                                        const Sink& sink) {
   int prev[C], pdb[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) {
@@ -99,7 +105,7 @@ __device__ __forceinline__ void dp_rows(const uint8_t* s_text,
     const int qc = s_q[i - 1];
     // the next lane's first cell: the up source of this lane's last cell
     const int nm = __shfl_down_sync(kFull, prev[0], 1, L);
-    const int ndb = __shfl_down_sync(kFull, pdb[0], 1, L);
+    const int ndb = kRuns ? __shfl_down_sync(kFull, pdb[0], 1, L) : 0;
     int diag[C], up[C], udb[C], x[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) {
@@ -122,7 +128,6 @@ __device__ __forceinline__ void dp_rows(const uint8_t* s_text,
     int before = __shfl_up_sync(kFull, tot, 1, L);
     if (gr.l == 0) before = INT_MIN;
     int m[C], dir[C];
-    unsigned nonleft[C], any = 0u;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       const int d = C * gr.l + c;
@@ -131,41 +136,80 @@ __device__ __forceinline__ void dp_rows(const uint8_t* s_text,
       m[c] = valid ? max(x[c], before) - d : kNeg;
       dir[c] = m[c] == diag[c] ? 1 : (m[c] == up[c] ? 2 : 3);
       if (!(valid && m[c] > kNeg / 2)) dir[c] = 0;
-      nonleft[c] = __ballot_sync(kFull, dir[c] != 3);
-      any |= nonleft[c];
-    }
-    // the last non-left cell before this lane's cells: the highest lane
-    // below with one, then its highest such cell
-    int last = -1;
-    const unsigned lanes = any & gr.below;
-    if (lanes != 0u) {
-      const int ls = 31 - __clz(lanes);
-      int cs = 0;
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-        if ((nonleft[c] >> ls) & 1u) cs = c;
-      last = C * (ls % L) + cs;
-    }
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int d = C * gr.l + c;
-      if (dir[c] != 3) last = d;
-      const int pd = pdb[c] & 3, pr = pdb[c] >> 2;
-      const int ud = udb[c] & 3, ur = udb[c] >> 2;
-      const int run1 = min((pd == 1 ? pr : 0) + 1, 63);
-      const int run2 = min((ud == 2 ? ur : 0) + 1, 63);
-      const int run3 = min(d - last, 63);
-      const int run = dir[c] == 1 ? run1
-                                  : (dir[c] == 2 ? run2
-                                                 : (dir[c] == 3 ? run3 : 0));
-      const int db = dir[c] > 0 ? (dir[c] | (run << 2)) : 0;
-      if (d < band) store(i, d, db);
       if (i == ql) fin[c] = m[c];
       prev[c] = m[c];
-      pdb[c] = db;
+    }
+    if constexpr (!kRuns) {
+      unsigned bit0[C], bit1[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        bit0[c] = __ballot_sync(kFull, dir[c] & 1);
+        bit1[c] = __ballot_sync(kFull, dir[c] >> 1);
+      }
+      sink.row(i, bit0, bit1);
+    } else {
+      unsigned nonleft[C], any = 0u;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        nonleft[c] = __ballot_sync(kFull, dir[c] != 3);
+        any |= nonleft[c];
+      }
+      // the last non-left cell before this lane's cells: the highest
+      // lane below with one, then its highest such cell
+      int last = -1;
+      const unsigned lanes = any & gr.below;
+      if (lanes != 0u) {
+        const int ls = 31 - __clz(lanes);
+        int cs = 0;
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          if ((nonleft[c] >> ls) & 1u) cs = c;
+        last = C * (ls % L) + cs;
+      }
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int d = C * gr.l + c;
+        if (dir[c] != 3) last = d;
+        const int pd = pdb[c] & 3, pr = pdb[c] >> 2;
+        const int ud = udb[c] & 3, ur = udb[c] >> 2;
+        const int run1 = min((pd == 1 ? pr : 0) + 1, 63);
+        const int run2 = min((ud == 2 ? ur : 0) + 1, 63);
+        const int run3 = min(d - last, 63);
+        const int run = dir[c] == 1 ? run1
+                                    : (dir[c] == 2 ? run2
+                                                   : (dir[c] == 3 ? run3 : 0));
+        const int db = dir[c] > 0 ? (dir[c] | (run << 2)) : 0;
+        if (d < band) sink.cell(i, d, db);
+        pdb[c] = db;
+      }
     }
   }
 }
+
+// bm_dp_fwd's sink: every byte of the live pair to device memory.
+struct ByteSink {
+  uint8_t* out;
+  int64_t row_stride;
+  bool live;
+  __device__ void cell(int i, int d, int db) const {
+    if (live) out[i * row_stride + d] = static_cast<uint8_t>(db);
+  }
+  __device__ void row(int, const unsigned*, const unsigned*) const {}
+};
+
+// bm_dp_runs's sink: lane 0 stores the warp's row of direction bits.
+template <int C>
+struct BitSink {
+  uint2* strip;
+  int lane;
+  __device__ void cell(int, int, int) const {}
+  __device__ void row(int i, const unsigned* b0, const unsigned* b1) const {
+    if (lane == 0)
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        strip[(i - 1) * C + c] = make_uint2(b0[c], b1[c]);
+  }
+};
 
 // The pair's text window (W bytes) and query codes (Q bytes) into shared
 // memory, by the pair's L lanes.
@@ -189,7 +233,7 @@ dp_fwd_kernel(const uint8_t* __restrict__ textp,
               const int32_t* __restrict__ width, int64_t n_pairs, int W,
               int Q, int band, int lo, int smem_stride,
               uint8_t* __restrict__ dirs, int32_t* __restrict__ final_out) {
-  extern __shared__ uint8_t smem[];
+  extern __shared__ __align__(16) uint8_t smem[];
   constexpr int G = 32 / L;
   const int lane = threadIdx.x & 31;
   const Group<L> gr(lane);
@@ -207,11 +251,10 @@ dp_fwd_kernel(const uint8_t* __restrict__ textp,
   uint8_t* out = dirs + pair * band;
   if (live)
     for (int d = gr.l; d < band; d += L) out[d] = 0;  // row 0: all stop
+  const ByteSink sink{out, row_stride, live};
   int fin[C];
-  dp_rows<L, C>(s_text, s_q, Q, width[pair], qlen[pair], band, lo, gr, fin,
-                [&](int i, int d, int db) {
-                  if (live) out[i * row_stride + d] = static_cast<uint8_t>(db);
-                });
+  dp_rows<L, C, true>(s_text, s_q, Q, width[pair], qlen[pair], band, lo, gr,
+                      fin, sink);
   if (!live) return;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
@@ -229,11 +272,12 @@ dp_runs_kernel(const uint8_t* __restrict__ textp,
                const int32_t* __restrict__ qlen,
                const int32_t* __restrict__ width, int64_t n_pairs, int W,
                int Q, int band, int lo, int T2, int MR, int wrap_star,
-               int smem_stride, int strip_bytes,
-               uint8_t* __restrict__ scratch, int32_t* __restrict__ head,
+               int strip_bytes, int stage_stride,
+               uint2* __restrict__ scratch, int32_t* __restrict__ head,
                int32_t* __restrict__ runs) {
-  extern __shared__ uint8_t smem[];
+  extern __shared__ __align__(16) uint8_t smem[];
   constexpr int G = 32 / L;
+  constexpr int kMaxPerLane = 128 / L;  // MR <= 128 runs over L lanes
   const int lane = threadIdx.x & 31;
   const Group<L> gr(lane);
   const int g = lane / L;
@@ -241,9 +285,10 @@ dp_runs_kernel(const uint8_t* __restrict__ textp,
   const bool live = raw < n_pairs;
   const int64_t pair = live ? raw : n_pairs - 1;
 
-  uint8_t* s_base = smem + g * smem_stride;
-  uint8_t* strip = kSmemStrip ? s_base : scratch + pair * (int64_t)Q * band;
-  uint8_t* s_text = s_base + (kSmemStrip ? strip_bytes : 0);
+  // the warp's strip: row i - 1 holds C (bit0, bit1) ballot pairs
+  uint2* strip = kSmemStrip ? reinterpret_cast<uint2*>(smem)
+                            : scratch + static_cast<int64_t>(blockIdx.x) * Q * C;
+  uint8_t* s_text = smem + (kSmemStrip ? strip_bytes : 0) + g * stage_stride;
   uint8_t* s_q = s_text + W;
   stage<L>(s_text, s_q, textp + pair * W, qcodes + pair * Q, W, Q, gr.l);
   __syncwarp();
@@ -251,11 +296,10 @@ dp_runs_kernel(const uint8_t* __restrict__ textp,
   const int ql = qlen[pair];
   // rows past qlen feed no traceback; the warp runs its pairs' longest
   const int n_rows = __reduce_max_sync(kFull, min(ql, Q));
+  const BitSink<C> sink{strip, lane};
   int fin[C];
-  dp_rows<L, C>(s_text, s_q, n_rows, width[pair], ql, band, lo, gr, fin,
-                [&](int i, int d, int db) {
-                  strip[(i - 1) * band + d] = static_cast<uint8_t>(db);
-                });
+  dp_rows<L, C, false>(s_text, s_q, n_rows, width[pair], ql, band, lo, gr,
+                       fin, sink);
 
   // score and end d: the final row's max, the smallest d at it
   int best = INT_MIN, bd = band;
@@ -276,62 +320,69 @@ dp_runs_kernel(const uint8_t* __restrict__ textp,
       bd = od;
     }
   }
-  __syncwarp();  // the strip's bytes, written by every lane, to lane 0
+  __syncwarp();  // the strip, written by lane 0, to the walking lanes
 
-  const int i0 = (wrap_star && best < -60) ? 0 : ql;
-  auto byte_at = [&](int i, int d) -> int {
-    return strip[(min(i, Q) - 1) * band + min(max(d, 0), band - 1)];
-  };
-  // first walk: the merged run count and where the walk ends
-  int n_runs = 0, fi = i0, fd = bd;
-  if (gr.l == 0) {
-    int prev_op = 0;
-    for (int t = 0; t < T2 && fi > 0; ++t) {
-      const int b = byte_at(fi, fd);
-      const int op = b & 3, run = b >> 2;
-      if (op == 0) break;  // no move: the walk stays here to its end
-      n_runs += op != prev_op;
-      prev_op = op;
-      if (op != 3) fi -= run;
-      fd += op == 2 ? run : (op == 3 ? -run : 0);
-    }
-  }
-  n_runs = __shfl_sync(kFull, n_runs, 0, L);
-  const int kept = min(n_runs, MR);
+  // the walk, by the pair's lane 0: merged run r (traceback order) goes
+  // to slot r % MR of the pair's runs, so the last MR of them, the first
+  // MR in query order, stay
   int32_t* my_runs = runs + pair * MR;
-  if (live)
-    for (int k = kept + gr.l; k < MR; k += L) my_runs[k] = 0;
-  if (gr.l != 0 || !live) return;
-  // second walk: merged run r (traceback order) is query-order run
-  // n_runs - 1 - r; the first MR of those are kept
-  int i = i0, d = bd, r = -1, cur_op = 0, cur_len = 0, max_len = 0;
-  auto emit = [&]() {
-    const int k = n_runs - 1 - r;
-    if (k < MR) {
-      my_runs[k] = (cur_len << 2) | cur_op;
-      max_len = max(max_len, cur_len);
+  int i = (wrap_star && best < -60) ? 0 : ql, d = bd, n_runs = 0;
+  if (gr.l == 0 && live) {
+    int jumps = 0, in_jump = 0, cur = 0, len = 0, slot = -1;
+    while (i > 0) {
+      const int dc = min(max(d, 0), band - 1);
+      const int lc = dc / C;
+      const uint2 w = strip[(min(i, Q) - 1) * C + (dc - lc * C)];
+      const int bit = g * L + lc;
+      const int op = ((w.x >> bit) & 1u) | (((w.y >> bit) & 1u) << 1);
+      if (op == 0) break;  // no move: the traceback stays here
+      if (op != cur || in_jump == 63) {  // this cell starts a jump
+        if (jumps == T2) break;
+        ++jumps;
+        in_jump = 0;
+        if (op != cur) {
+          if (cur != 0) my_runs[slot] = (len << 2) | cur;
+          slot = slot + 1 == MR ? 0 : slot + 1;
+          ++n_runs;
+          cur = op;
+          len = 0;
+        }
+      }
+      ++in_jump;
+      ++len;
+      if (op != 3) --i;
+      d += op == 2 ? 1 : (op == 3 ? -1 : 0);
     }
-  };
-  for (int t = 0; t < T2 && i > 0; ++t) {
-    const int b = byte_at(i, d);
-    const int op = b & 3, run = b >> 2;
-    if (op == 0) break;
-    if (op != cur_op) {
-      if (cur_op != 0) emit();
-      ++r;
-      cur_op = op;
-      cur_len = 0;
-    }
-    cur_len += run;
-    if (op != 3) i -= run;
-    d += op == 2 ? run : (op == 3 ? -run : 0);
+    if (cur != 0) my_runs[slot] = (len << 2) | cur;
   }
-  if (cur_op != 0) emit();
+  // query-order run k is merged run n_runs - 1 - k; the pair's lanes
+  // read the kept runs, then write them in that order, zeros past them
+  n_runs = __shfl_sync(kFull, n_runs, 0, L);
+  __syncwarp();
+  const int kept = min(n_runs, MR);
+  int v[kMaxPerLane];
+  int max_len = 0;
+#pragma unroll
+  for (int j = 0; j < kMaxPerLane; ++j) {
+    const int k = gr.l + j * L;
+    v[j] = live && k < kept ? my_runs[(n_runs - 1 - k) % MR] : 0;
+    max_len = max(max_len, v[j] >> 2);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < kMaxPerLane; ++j) {
+    const int k = gr.l + j * L;
+    if (live && k < MR) my_runs[k] = v[j];
+  }
+#pragma unroll
+  for (int k = L / 2; k > 0; k >>= 1)
+    max_len = max(max_len, __shfl_xor_sync(kFull, max_len, k, L));
+  if (gr.l != 0 || !live) return;
   head[pair] = best;
-  head[n_pairs + pair] = fd - lo;
+  head[n_pairs + pair] = d - lo;
   head[2 * n_pairs + pair] = n_runs;
   head[3 * n_pairs + pair] = max_len;
-  head[4 * n_pairs + pair] = fi > 0;
+  head[4 * n_pairs + pair] = i > 0;
 }
 
 // ---- launch ------------------------------------------------------------
@@ -369,34 +420,37 @@ int launch_fwd(const Args& a, uint8_t* dirs, int32_t* fin) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Shared-memory bytes of one pair of bm_dp_runs: (strip, staging, stride),
-// the strip 0 where the block's strips do not fit. The stride is an odd
-// multiple of 64 bytes, so the two pairs of a warp sit on other banks.
+// Shared memory of a one-warp block of bm_dp_runs: the warp's strip
+// (Q rows of C ballot pairs; 0 where it does not fit and goes to device
+// scratch) and each pair's staged text and query.
 struct RunsSmem {
-  int strip, stride;
+  int strip, stage;
   size_t block;
 };
 
-RunsSmem runs_smem(int lanes, int W, int Q, int band) {
+RunsSmem runs_smem(int lanes, int cells, int W, int Q) {
   const int G = 32 / lanes;
-  const int64_t strip = static_cast<int64_t>(Q) * band;
+  const int64_t strip = static_cast<int64_t>(Q) * cells * 8;
   const int stage = round_up(W + Q, 16);
-  for (int64_t s = strip;; s = 0) {
-    const int stride = round_up(s + stage, 128) + 64;
-    const size_t block = static_cast<size_t>(stride) * G;
-    if (block <= kSmemMax) return {static_cast<int>(s), stride, block};
-    if (s == 0) return {-1, 0, 0};
-  }
+  const size_t staged = static_cast<size_t>(stage) * G;
+  if (staged > kSmemMax) return {-1, 0, 0};
+  if (static_cast<size_t>(strip) + staged <= kSmemMax)
+    return {static_cast<int>(strip), stage, strip + staged};
+  return {0, stage, staged};
 }
 
 int lanes_for(int band) { return band <= 64 ? 16 : 32; }
+int cells_for(int band) {
+  const int L = lanes_for(band);
+  return (band + L - 1) / L;
+}
 
 template <int L, int C>
-int launch_runs(const Args& a, int T2, int MR, int wrap_star,
-                uint8_t* scratch, int32_t* head, int32_t* runs) {
+int launch_runs(const Args& a, int T2, int MR, int wrap_star, uint2* scratch,
+                int32_t* head, int32_t* runs) {
   constexpr int G = 32 / L;
-  const RunsSmem s = runs_smem(L, a.W, a.Q, a.band);
-  if (s.strip < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const RunsSmem s = runs_smem(L, C, a.W, a.Q);
+  if (s.strip < 0 || MR > 128) return static_cast<int>(cudaErrorInvalidValue);
   const bool in_smem = s.strip > 0 || a.Q == 0;
   if (!in_smem && scratch == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -407,7 +461,7 @@ int launch_runs(const Args& a, int T2, int MR, int wrap_star,
   if (const int e = set_smem(kernel, s.block)) return e;
   kernel<<<static_cast<unsigned>(blocks), 32, s.block, a.st>>>(
       a.t, a.q, a.ql, a.w, a.n_pairs, a.W, a.Q, a.band, a.lo, T2, MR,
-      wrap_star, s.stride, s.strip, scratch, head, runs);
+      wrap_star, s.strip, s.stage, scratch, head, runs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -454,19 +508,23 @@ extern "C" int bm_dp_fwd(const void* textp, const void* qcodes,
 }
 
 // Bytes of device scratch bm_dp_runs needs for n_pairs pairs at this
-// geometry: 0 where each pair's strip fits in shared memory, n_pairs *
-// Q * band where it does not, -1 where not even the staging fits.
+// geometry: 0 where a warp's strip fits in shared memory, a strip of Q x
+// C x 8 bytes per warp where it does not, -1 where not even the staging
+// fits.
 extern "C" int64_t bm_dp_runs_scratch_bytes(int64_t n_pairs, int W, int Q,
                                             int band) {
-  const RunsSmem s = runs_smem(lanes_for(band), W, Q, band);
+  if (band < 1 || band > 128 || Q < 0 || n_pairs < 0) return -1;
+  const int L = lanes_for(band), C = cells_for(band);
+  const RunsSmem s = runs_smem(L, C, W, Q);
   if (s.strip < 0) return -1;
-  return s.strip > 0 || Q == 0 ? 0 : n_pairs * Q * band;
+  const int64_t warps = (n_pairs + 32 / L - 1) / (32 / L);
+  return s.strip > 0 || Q == 0 ? 0 : warps * Q * C * 8;
 }
 
 // The DP of bm_dp_fwd with the run-jump traceback and per-row RLE behind
 // it. Inputs as bm_dp_fwd; T2 run jumps at most, MR runs kept per row;
-// wrap_star 0 or 1. scratch: bm_dp_runs_scratch_bytes bytes (may be null
-// where that is 0). Outputs head (5, P) i32, rows score, begin, run
+// wrap_star 0 or 1; MR <= 128. scratch: bm_dp_runs_scratch_bytes bytes
+// (may be null where that is 0). Outputs head (5, P) i32, rows score, begin, run
 // count, longest kept run, unterminated (0/1); runs (P, MR) i32, merged
 // runs in query order as length << 2 | op, 0 past the kept ones.
 extern "C" int bm_dp_runs(const void* textp, const void* qcodes,
@@ -482,7 +540,7 @@ extern "C" int bm_dp_runs(const void* textp, const void* qcodes,
                static_cast<const int32_t*>(qlen),
                static_cast<const int32_t*>(width), n_pairs, W, Q, band, lo,
                static_cast<cudaStream_t>(stream)};
-  auto s = static_cast<uint8_t*>(scratch);
+  auto s = static_cast<uint2*>(scratch);
   auto h = static_cast<int32_t*>(head);
   auto r = static_cast<int32_t*>(runs);
   const int ws = wrap_star != 0;

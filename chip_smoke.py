@@ -32,7 +32,7 @@ Phases, each reported on its own line:
      traceback) on its first 4096 located pairs, dp_fwd launched and its
      scores those of dp_runs; dp_fwd and dp_runs against their plain
      versions on those pairs (exact, times, bounds), dp_runs also at
-     band 128 on random pairs (both wrap rules) and at Q 2048, where the
+     band 128 on random pairs (both wrap rules) and at Q 8192, where the
      strip lives in device scratch; at the full 16384-pair sub-batch
      both kernels' device times and bounds, the whole sub-batch's
      vector (unpack, windows, dp_runs, packing) word for word the one
@@ -91,7 +91,7 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 16.7e12
 L2_FLUSH_BYTES = 256 << 20    # written before a cold launch: > the 50 MB L2
 DP_OPS_PER_CELL = 15          # int ops of one DP cell's recurrence
-SCRATCH_Q = 2048              # a query width whose band-128 strip needs scratch
+SCRATCH_Q = 8192              # a query width whose band-128 strip needs scratch
 WIDE_S = 32                   # samples per read-strand of the six-plane checks
 
 
@@ -328,7 +328,7 @@ def dp_runs_shape_checks(torch, dev) -> None:
     from bucketmap_tpu_torch import kernels
     from bucketmap_tpu_torch.ops.align import dp_runs, dp_runs_plain
 
-    for P, Q, seed in ((2048, 256, 1), (256, SCRATCH_Q, 2)):
+    for P, Q, seed in ((2048, 256, 1), (64, SCRATCH_Q, 2)):
         rp = random_pairs(torch, dev, P, Q, 0.1, seed)
         textp, band = rp[0], rp[4]
         scratch = kernels.library().bm_dp_runs_scratch_bytes(
