@@ -71,8 +71,8 @@ constexpr int kNeg = -100000000;  // NEG of the aligner
 constexpr int kFwdWarps = 4;      // warps per block of bm_dp_fwd
 constexpr size_t kSmemMax = 227 * 1024;
 
-// The pair that lanes [g L, g L + L) of a warp own: its index, the
-// lane within the pair and the warp's lanes below that lane in the pair.
+// A lane's place among its pair's lanes [g L, g L + L) of the warp: its
+// lane within the pair, and the warp's lanes below it in the pair.
 template <int L>
 struct Group {
   int l;

@@ -157,9 +157,11 @@ def dp_fwd(textp: torch.Tensor, qcodes: torch.Tensor, qlen, width,
     return dirs, final
 
 
-def run_jumps(band: int) -> int:
-    """T2, the run-jump budget of the traceback at this band."""
-    return 192 if band >= BAND else 64
+def run_budget(band: int) -> tuple[int, int]:
+    """(T2, MR) at this band: the run-jump budget of the traceback, and
+    the runs kept per row."""
+    T2 = 192 if band >= BAND else 64
+    return T2, min(MAX_ROW_RUNS, T2)
 
 
 def dp_runs_plain(textp: torch.Tensor, qcodes: torch.Tensor, qlen, width,
@@ -169,14 +171,14 @@ def dp_runs_plain(textp: torch.Tensor, qcodes: torch.Tensor, qlen, width,
 
     Arguments as dp_fwd_plain. The traceback starts at (qlen, the
     smallest d at the final row's max) and each step jumps a whole
-    same-op chain (runs capped at 63), run_jumps(band) steps at most;
+    same-op chain (runs capped at 63), T2 steps at most (run_budget);
     wrap_star starts rows with score < -60 at row 0, so their traceback
     is empty. The jumps in query order (reversed), with adjacent ones of
     the same op (a chain split by the 63 cap) merged, are the row's runs.
     Returns head (5, P) int32, rows score, begin (final d - lo), run
     count (also the runs past the cap), longest kept run, unterminated
-    (0/1); and runs (P, MR) int32, MR = min(MAX_ROW_RUNS, T2), the first
-    MR runs as length << 2 | op, 0 past them."""
+    (0/1); and runs (P, MR) int32, the first MR runs as length << 2 |
+    op, 0 past them."""
     P, Q = qcodes.shape
     dev = textp.device
     i64 = torch.int64
@@ -186,7 +188,7 @@ def dp_runs_plain(textp: torch.Tensor, qcodes: torch.Tensor, qlen, width,
     row = P * band
     pbase = torch.arange(P, dtype=i64, device=dev) * band
     qlen64 = qlen.to(i64)
-    T = run_jumps(band)
+    T, MR = run_budget(band)
     i = torch.where(score < -60, 0, qlen64) if wrap_star else qlen64
     d = first_max_index(final)
     ops, lens = [], []
@@ -201,7 +203,6 @@ def dp_runs_plain(textp: torch.Tensor, qcodes: torch.Tensor, qlen, width,
         ops.append(op)
         lens.append(run)
 
-    MR = min(MAX_ROW_RUNS, T)
     col = torch.arange(T, dtype=i64, device=dev)[None, :]
     # query order = reversed traceback order; a chain split by the 63 cap
     # leaves adjacent entries with the same op, merged here
@@ -238,8 +239,7 @@ def dp_runs(textp: torch.Tensor, qcodes: torch.Tensor, qlen, width,
     if textp.device.type == "cpu":
         return dp_runs_plain(textp, qcodes, qlen, width, band, lo, wrap_star)
     P, W, Q = _check_dp_args(textp, qcodes, qlen, width, band, lo)
-    T = run_jumps(band)
-    MR = min(MAX_ROW_RUNS, T)
+    T, MR = run_budget(band)
     dev = textp.device
     lib = kernels.library()
     nbytes = lib.bm_dp_runs_scratch_bytes(P, W, Q, band)
@@ -293,8 +293,6 @@ def first_max_index(final: torch.Tensor) -> torch.Tensor:
 
 
 class BandedAligner:
-    MAX_ROW_RUNS = MAX_ROW_RUNS
-
     def __init__(self, index: BucketIndex, device, pair_batch: int = 512):
         self.device = resolve_device(device)
         self.index = index
@@ -528,7 +526,7 @@ class BandedAligner:
             cap = (len(vec) - 4 - 3 * pb) * 2
             # vec[2] > 16383 overflows the uint16 length field; vec[3]
             # counts tracebacks unfinished within the run-jump budget
-            if total > cap or max_row > self.MAX_ROW_RUNS \
+            if total > cap or max_row > MAX_ROW_RUNS \
                     or int(vec[2]) > 16383 or int(vec[3]) > 0:
                 sc, bg, pk = self._ops_rerun(qcodes, qlen, bucket_ids,
                                              offsets, is_rc, s, e)

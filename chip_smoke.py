@@ -748,10 +748,9 @@ def main() -> int:
     from bucketmap_tpu_torch import kernels, world
     from bucketmap_tpu_torch.device import upload_u32
     from bucketmap_tpu_torch.mapper.pipeline import BucketMapPipeline
-    from bucketmap_tpu_torch.ops.align import (MAX_ROW_RUNS, dp_fwd,
-                                               dp_fwd_plain, dp_runs,
+    from bucketmap_tpu_torch.ops.align import (dp_fwd, dp_fwd_plain, dp_runs,
                                                dp_runs_plain, pack_qcodes,
-                                               run_jumps, runs_vector)
+                                               run_budget, runs_vector)
     from bucketmap_tpu_torch.ops.coarse import coarse_score, coarse_score_plain
     from bucketmap_tpu_torch.parallel import distributed
     from bucketmap_tpu_torch.ops.encoding import unpack_reads
@@ -948,7 +947,7 @@ def main() -> int:
     qfull = torch.zeros((P, Qp), dtype=torch.uint8, device=dev)
     qfull[:, :qc.shape[1]] = torch.from_numpy(qc.astype("uint8")).to(dev)
     textp, band, lo = al._text_windows(Qp, bids, offs, is_rc, width)
-    mr = min(MAX_ROW_RUNS, run_jumps(band))
+    mr = run_budget(band)[1]
     n = DP_PAIRS
     dargs = (textp[:n].contiguous(), qfull[:n].contiguous(),
              qlen[:n].contiguous(), width[:n].contiguous(), band, lo)

@@ -264,7 +264,7 @@ def test_dp_runs_plain_matches_jax_run_traceback(world, Q, rate, wrap_star):
     head, runs = align.dp_runs_plain(textp, torch.from_numpy(qcodes), t[0],
                                      t[4], band, lo, wrap_star)
     head, runs = head.numpy(), runs.numpy()
-    MR = min(align.MAX_ROW_RUNS, align.run_jumps(band))
+    MR = align.run_budget(band)[1]
     assert runs.shape == (30, MR)
     np.testing.assert_array_equal(head[0], sc)
     np.testing.assert_array_equal(head[1], bg)
