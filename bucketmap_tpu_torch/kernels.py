@@ -9,7 +9,9 @@ or imported when this module is imported.
 
 `LAUNCHES` counts, per kernel, the launches its wrapper made: a wrapper
 adds one where it launches its kernel and nowhere else, so a run can
-show that its path went through the kernels.
+show that its path went through the kernels. With `SYNC_AFTER_LAUNCH`
+(set by `utils.debug.validation_mode`) `check` also synchronises after
+each launch, so a fault raises at the kernel that caused it.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ KERNELS = ("coarse_score", "fine_window", "tally", "dp_fwd", "dp_runs",
 
 LAUNCHES = {name: 0 for name in KERNELS}
 BUILD_INFO: dict = {}
+SYNC_AFTER_LAUNCH = False
 
 _lock = threading.Lock()
 _lib = None
@@ -148,9 +151,17 @@ def library():
 
 
 def check(err: int, name: str) -> None:
+    """Raise if kernel `name` failed to launch; under SYNC_AFTER_LAUNCH
+    also wait for it and raise if it faulted on the device."""
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {err}")
+    if SYNC_AFTER_LAUNCH:
+        import torch
+        try:
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            raise RuntimeError(f"CUDA kernel {name} faulted: {e}") from e
 
 
 def stream_handle(t) -> int:

@@ -21,27 +21,32 @@ from bucketmap_tpu_torch.io.fastq import ReadBatch, iter_fastq_batches
 from bucketmap_tpu_torch.sim.simulator import ShortReadSimulator, repeat_genome
 
 
+def index_name(genome_mbp: float) -> str:
+    """The indicator under which `bench_world` saves its index."""
+    return f"idx_{genome_mbp:g}rep2"
+
+
 def bench_world(cache_dir: str, genome_mbp: float = 1700.0,
                 n_reads: int = 131072, log=print):
     """(index, fastq_path, ground_truth_path, seconds spent making what
     the cache lacked)."""
     cfg = MapperConfig(bucket_len=65536, read_len=300)
-    gtag = f"{genome_mbp:g}rep2"
-    tag = f"g{gtag}m_r{n_reads}"
+    name = index_name(genome_mbp)
+    tag = f"g{genome_mbp:g}rep2m_r{n_reads}"
     os.makedirs(cache_dir, exist_ok=True)
     fastq = os.path.join(cache_dir, f"reads_{tag}.fastq")
     gt = os.path.join(cache_dir, f"reads_{tag}.position_ground_truth")
     t0 = time.perf_counter()
     genome = None
-    if os.path.exists(os.path.join(cache_dir, f"idx_{gtag}.bmtpu.json")):
-        index = builder.load_index(cache_dir, f"idx_{gtag}")
+    if os.path.exists(os.path.join(cache_dir, f"{name}.bmtpu.json")):
+        index = builder.load_index(cache_dir, name)
     else:
         genome = repeat_genome(int(genome_mbp * 1e6), seed=1, n_refs=4)
         log(f"[world] genome {genome_mbp:g} Mbp made in "
             f"{time.perf_counter() - t0:.1f} s")
         t1 = time.perf_counter()
         index = builder.build_index(genome, cfg)
-        builder.save_index(index, cache_dir, f"idx_{gtag}")
+        builder.save_index(index, cache_dir, name)
         log(f"[world] index built in {time.perf_counter() - t1:.1f} s "
             f"({index.n_buckets} buckets)")
     if not os.path.exists(fastq):

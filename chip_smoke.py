@@ -57,7 +57,23 @@ Phases, each reported on its own line:
      packed, prefix and positional tables only on the host, in numpy:
      minutes and ~17 GB of host memory at 1.7 Gbp) one batch through the
      tiled, packed, prefix, sorted and scan paths, the five vectors equal
-     word for word, with ms per vote chunk for each.
+     word for word, with ms per vote chunk for each;
+ 10. the command line in this process (`cli.main`): `map --device cuda`
+     on the bench world's saved index, align-free and --align, SAMs byte
+     for byte phases 4 and 6's, the map kernels (and dp_runs) launched;
+     `analyze-sam` on phase 4's SAM (its mapped share score_sam's, both
+     correct shares above the floor) and `analyze-fastq`; then on a 20
+     Mbp repeat genome `index --export-reference-format`, `simulate`,
+     `map` from the saved and from the reference-format index, the
+     second under utils.debug.validation_mode (the same SAM), and
+     `analyze-sam` above the floors; each command's seconds and
+     resource_report();
+ 11. the FM-index: FMIndex of a 4.6 Mbp random genome, the 32,768 seeds
+     (max_errors=1) of 16,384 simulated reads searched by
+     exact_search_batch on the card, equal to the CPU on every lane and
+     to backward_search on the first 256 non-empty ranges, its ms per
+     call and launches (torch.profiler through utils.debug.maybe_trace);
+     FMIndexMapper on the card against the CPU's on 1,024 reads.
 Each phase checks the launches of the kernels its path runs. Any failure
 raises and exits non-zero, and so does finding jax or the JAX package
 imported. The last two lines are a JSON object per kernel and the run's
@@ -93,6 +109,7 @@ L2_FLUSH_BYTES = 256 << 20    # written before a cold launch: > the 50 MB L2
 DP_OPS_PER_CELL = 15          # int ops of one DP cell's recurrence
 SCRATCH_Q = 8192              # a query width whose band-128 strip needs scratch
 WIDE_S = 32                   # samples per read-strand of the six-plane checks
+FM_MIN_AT_TRUTH = 0.75        # FMIndexMapper (max_errors=1): reads at their locus
 
 
 def keep_first_sub_batch(al, run):
@@ -730,6 +747,269 @@ def vote_paths_phase(torch, index, fastq, gt, sam, dev, packed, vec_single,
         f"{vecs['tiled'].shape[0]} words; card {card_name_and_limit()}")
 
 
+def run_cli(torch, argv, what: str):
+    """One command through the port's `cli.main`, in this process so that
+    `kernels.LAUNCHES` counts its launches (set to 0 just before it):
+    its output echoed, its seconds, launches and resource_report()
+    logged; raises unless it returns 0. Returns (output, launches)."""
+    import contextlib
+    import io
+
+    from bucketmap_tpu_torch import cli, kernels
+    from bucketmap_tpu_torch.utils.debug import resource_report
+
+    argv = [str(a) for a in argv]
+    cuda = torch.cuda.is_available()
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    if cuda:
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    out = buf.getvalue()
+    log(f"[cli] $ bucketmap-tpu-torch {' '.join(argv)}")
+    for line in out.splitlines():
+        log(line)
+    log(f"[cli] {what}: exit {rc} in {seconds:.2f} s; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; resources "
+        f"{resource_report()}")
+    if rc != 0:
+        raise RuntimeError(f"the command line's {what} returned {rc}")
+    return out, launches
+
+
+def report_numbers(out: str):
+    """(% mapped, % correct) from analyze-sam's report, computed from its
+    integer counts as the analyzer computes them; the simulator's truth
+    gives every read one locus, so the read count is the uniquely mapped
+    truth."""
+    import re
+
+    count = {}
+    for key, label in (("total", "Total number of reads"),
+                       ("random", "Total number of random reads"),
+                       ("mapped", "Total number of mapped reads"),
+                       ("correct", "Correctly mapped (sensitivity)")):
+        count[key] = int(re.search(re.escape(label) + r": (\d+)", out)[1])
+    return (100.0 * count["mapped"] / max(1, count["total"] - count["random"]),
+            100.0 * count["correct"] / max(1, count["total"]))
+
+
+def check_map_launches(launches: dict, kernels_run, what: str) -> None:
+    idle = [k for k in kernels_run if launches[k] == 0]
+    if idle:
+        raise RuntimeError(f"{what} never launched: {idle}")
+
+
+def cli_phase(torch, device: str, index, cache_dir: str, idx_name: str,
+              fastq: str, gt: str, sam: str, sam_al: str,
+              rt_mbp: float = 20.0, rt_reads: int = BATCH) -> None:
+    """Phase 10, the command line: `map` on the bench world's saved index
+    (align-free and --align; the SAMs of phases 4 and 6 byte for byte),
+    `analyze-sam` (its mapped share score_sam's) and `analyze-fastq` on
+    phase 4's files, then index -> simulate -> map (saved and
+    reference-format index, the same SAM) -> analyze-sam on a small
+    repeat genome. `device` is the map's --device."""
+    import contextlib
+    import shutil
+
+    from bucketmap_tpu_torch import world
+    from bucketmap_tpu_torch.io.fasta import write_fasta
+    from bucketmap_tpu_torch.ops.host_encoding import decode_to_ascii
+    from bucketmap_tpu_torch.sim.simulator import repeat_genome
+    from bucketmap_tpu_torch.utils.debug import validation_mode
+
+    cuda = device.startswith("cuda")
+    # (a) map, both modes, on the cached index
+    for what, extra, want, run in (("map", [], sam, MAP_KERNELS),
+                                   ("map --align", ["--align"], sam_al,
+                                    ALIGN_KERNELS)):
+        out_sam = os.path.join(cache_dir, "chip_smoke_cli.sam")
+        _, launches = run_cli(torch, ["map", "--device", device, "-i",
+                                      idx_name, "--index-dir", cache_dir, "-q",
+                                      fastq, "-o", out_sam, "--batch-size",
+                                      BATCH] + extra, what)
+        same = filecmp.cmp(want, out_sam, shallow=False)
+        log(f"[cli] {what}: SAM equal to {os.path.basename(want)} {same}")
+        if not same:
+            raise RuntimeError(f"the command line's {what} SAM differs from "
+                               f"{want}")
+        if cuda:
+            check_map_launches(launches, run, f"the command line's {what}")
+    # (b) analyze-sam against score_sam, (c) analyze-fastq
+    out, _ = run_cli(torch, ["analyze-sam", sam, "--fastq", fastq,
+                             "--ground-truth", gt, "--tolerance", 10],
+                     "analyze-sam")
+    pct_mapped, sensitivity = report_numbers(out)
+    mapped, correct = world.score_sam(sam, gt, index)
+    log(f"[cli] analyze-sam: pct_mapped {pct_mapped:.4f} (score_sam "
+        f"{mapped:.4f}); sensitivity {sensitivity:.4f} (score_sam correct "
+        f"{correct:.4f}; the analyzer's window sits one base off score_sam's)")
+    if abs(pct_mapped - mapped) > 1e-9:
+        raise RuntimeError("analyze-sam's mapped share differs from score_sam's")
+    if min(sensitivity, correct) < MIN_CORRECT:
+        raise RuntimeError("analyze-sam's sensitivity or score_sam's correct "
+                           "share is below the floor")
+    run_cli(torch, ["analyze-fastq", fastq], "analyze-fastq")
+
+    # (d) index -> simulate -> map -> analyze on a small repeat genome
+    rt = os.path.join(cache_dir, "cli_roundtrip")
+    shutil.rmtree(rt, ignore_errors=True)
+    os.makedirs(os.path.join(rt, "ref"))
+    fasta = os.path.join(rt, "g.fasta")
+    t0 = time.perf_counter()
+    write_fasta(fasta, [(r.id, decode_to_ascii(r.codes))
+                        for r in repeat_genome(int(rt_mbp * 1e6), seed=3,
+                                               n_refs=2)])
+    log(f"[cli] {rt_mbp:g} Mbp repeat genome written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    run_cli(torch, ["index", "-g", fasta, "-i", "rt", "--index-dir", rt,
+                    "--export-reference-format", "--force"], "index")
+    run_cli(torch, ["simulate", "-g", fasta, "-o", rt, "--name", "rt", "-c",
+                    rt_reads], "simulate")
+    for ext in (".qgram", ".bucket_id", ".kmers_index"):
+        shutil.copy(os.path.join(rt, "rt" + ext), os.path.join(rt, "ref"))
+    rt_fastq = os.path.join(rt, "rt.fastq")
+    sams = []
+    # the second map runs under validation_mode: every kernel launch
+    # synchronises and would raise naming its kernel
+    for what, extra, mode in (
+            ("map (saved index)", ["--index-dir", rt], contextlib.nullcontext),
+            ("map (reference format, validation_mode)",
+             ["--index-dir", os.path.join(rt, "ref"), "-g", fasta],
+             validation_mode)):
+        sams.append(os.path.join(rt, f"rt{len(sams)}.sam"))
+        with mode():
+            _, launches = run_cli(torch, ["map", "--device", device, "-i",
+                                          "rt", "-q", rt_fastq, "-o",
+                                          sams[-1], "--batch-size", BATCH]
+                                  + extra, what)
+        if cuda:
+            check_map_launches(launches, MAP_KERNELS,
+                               f"the command line's {what}")
+    same = filecmp.cmp(*sams, shallow=False)
+    log(f"[cli] the two round-trip SAMs equal {same}")
+    if not same:
+        raise RuntimeError("the map from the reference-format index differs "
+                           "from the map from the saved index")
+    out, _ = run_cli(torch, ["analyze-sam", sams[0], "--fastq", rt_fastq,
+                             "--ground-truth",
+                             os.path.join(rt, "rt.position_ground_truth"),
+                             "--tolerance", 10], "analyze-sam (round trip)")
+    pct_mapped, sensitivity = report_numbers(out)
+    if pct_mapped < MIN_MAPPED or sensitivity < MIN_CORRECT:
+        raise RuntimeError(f"round trip below the floor: mapped "
+                           f"{pct_mapped:.2f}, sensitivity {sensitivity:.2f}")
+
+
+def fm_phase(torch, dev, genome_bp: int = 4_600_000, n_reads: int = BATCH,
+             n_map: int = 1024, n_scalar: int = 256,
+             cache_dir: str = os.path.join(HERE, ".bench_cache")) -> None:
+    """Phase 11, the FM-index: built on an E. coli-scale random genome;
+    the two seeds (max_errors=1) of n_reads simulated reads, put on the
+    strand the index holds, searched on `dev` lane for lane as on the CPU
+    and, for the first n_scalar non-empty ranges, as backward_search
+    finds them; its time and launches per call; FMIndexMapper on `dev`
+    against the CPU's on the first n_map reads."""
+    import numpy as np
+
+    from bucketmap_tpu_torch.config import MapperConfig
+    from bucketmap_tpu_torch.index.fm import (FMIndex, FMIndexMapper,
+                                              exact_search_batch)
+    from bucketmap_tpu_torch.io.fastq import read_fastq
+    from bucketmap_tpu_torch.ops.host_encoding import revcomp_codes
+    from bucketmap_tpu_torch.sim.simulator import (ShortReadSimulator,
+                                                   random_genome)
+    from bucketmap_tpu_torch.utils.debug import maybe_trace
+
+    cuda = torch.device(dev).type == "cuda"
+    genome = random_genome(genome_bp, seed=1, n_refs=2)
+    t0 = time.perf_counter()
+    fmi = FMIndex.build(genome)
+    log(f"[fm] FMIndex of a {genome_bp} bp random genome (2 references) "
+        f"built in {time.perf_counter() - t0:.2f} s: {fmi.occ.shape[0]} occ "
+        f"checkpoints, {len(fmi.sa_vals)} SA samples")
+    sim = ShortReadSimulator(MapperConfig(bucket_len=65536, read_len=300),
+                             substitution_rate=0.002, insertion_rate=0.00025,
+                             deletion_rate=0.00025, seed=2)
+    sim.read(genome)
+    paths = sim.generate(os.path.join(cache_dir, "fm"), "fm", n_reads)
+    batch = read_fastq(paths["fastq"])
+    truth = np.loadtxt(paths["position_gt"], usecols=(0, 1, 2), dtype=np.int64,
+                       ndmin=2)
+    codes, lens = batch.codes.copy(), batch.lengths.astype(np.int64)
+    for i in np.nonzero(truth[:, 2])[0]:
+        codes[i, :lens[i]] = revcomp_codes(codes[i, :lens[i]])
+    mapper = FMIndexMapper(fmi, max_errors=1, device=dev)
+    mapper.text = np.concatenate([r.codes for r in genome])
+    pats, plens, _ = mapper.seed_batch(codes, lens)
+
+    def search():
+        return exact_search_batch(fmi, pats, plens, device=dev)
+
+    t0 = time.perf_counter()
+    lo, hi = search()
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lo_h, hi_h = exact_search_batch(fmi, pats, plens, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    lanes_equal = np.array_equal(lo, lo_h) and np.array_equal(hi, hi_h)
+    nonempty = np.nonzero(lo < hi)[0]
+    scalar = all(fmi.backward_search(pats[i, :plens[i]]) == (lo[i], hi[i])
+                 for i in nonempty[:n_scalar])
+    if cuda:
+        ms = call_ms(torch, search, reps=5, warmup=1)
+    else:
+        t0 = time.perf_counter()
+        search()
+        ms = (time.perf_counter() - t0) * 1e3
+    with maybe_trace(os.path.join(cache_dir, "fm_trace")) as prof:
+        search()
+    device_events = [e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels_run = [e for e in device_events if not e.name.startswith("Mem")]
+    launches = (f"{len(kernels_run)} kernels + "
+                f"{len(device_events) - len(kernels_run)} copies "
+                f"(torch.profiler)" if device_events else
+                "not measured (the profiler saw no device event)")
+    log(f"[fm] exact_search_batch on {dev}: {len(pats)} patterns "
+        f"(m {pats.shape[1]}, longest {int(plens.max())}), "
+        f"{len(nonempty)} non-empty; equal to the CPU on every lane "
+        f"{lanes_equal}; first {min(n_scalar, len(nonempty))} non-empty equal "
+        f"to backward_search {scalar}; {ms:.4f} ms per call (call_ms; first "
+        f"call with the upload {first_s:.3f} s, the CPU's {cpu_s:.3f} s); "
+        f"launches per call {launches}")
+    if not (lanes_equal and scalar):
+        raise RuntimeError("exact_search_batch on the device differs")
+
+    hits = []
+    for m_dev in (dev, "cpu"):
+        m = mapper if m_dev == dev else FMIndexMapper(fmi, max_errors=1,
+                                                      device="cpu")
+        m.text = mapper.text
+        t0 = time.perf_counter()
+        hits.append(m.map_reads(codes[:n_map], lens[:n_map]))
+        log(f"[fm] FMIndexMapper on {m_dev}: {n_map} reads in "
+            f"{time.perf_counter() - t0:.2f} s")
+    same = hits[0] == hits[1]
+    at_truth = sum(any(h.ref_id == truth[i, 0]
+                       and abs(h.position - (truth[i, 1] - 1)) <= 1
+                       for h in row) for i, row in enumerate(hits[0]))
+    log(f"[fm] hits equal to the CPU mapper's {same}; reads with a hit at "
+        f"the true locus (+-1) {at_truth} of {n_map} "
+        f"({100.0 * at_truth / n_map:.2f}%)")
+    if not same:
+        raise RuntimeError("FMIndexMapper's hits on the device differ")
+    if at_truth < FM_MIN_AT_TRUTH * n_map:
+        raise RuntimeError("FMIndexMapper found too few reads at their locus")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--genome-mbp", type=float, default=1700.0)
@@ -1024,6 +1304,17 @@ def main() -> int:
     # ---- 9. vote paths and device builds --------------------------------
     vote_paths_phase(torch, index, fastq, gt, sam, dev, packed, vec_single,
                      candidate_pairs)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 10. the command line ---------------------------------------------
+    cli_phase(torch, "cuda", index, os.path.join(HERE, ".bench_cache"),
+              world.index_name(args.genome_mbp), fastq, gt, sam, sam_al)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 11. the FM-index -------------------------------------------------
+    fm_phase(torch, dev)
 
     foreign = sorted(m for m in sys.modules
                      if m in ("jax", "bucketmap_tpu") or m.startswith("jax.")
