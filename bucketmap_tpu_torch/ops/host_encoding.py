@@ -81,6 +81,17 @@ def kmer_hashes(codes: np.ndarray, k: int) -> np.ndarray:
     return h
 
 
+def revcomp_hash(h: np.ndarray, k: int) -> np.ndarray:
+    """Hash of the reverse complement of each k-mer hash (utils.h:291-302):
+    complement each 2-bit base (~b & 3) and reverse base order; uint32."""
+    h = np.asarray(h, dtype=np.uint32)
+    out = np.zeros_like(h)
+    for i in range(k):
+        base = (~(h >> np.uint32(2 * i))) & np.uint32(3)
+        out = out | (base << np.uint32(2 * (k - 1 - i)))
+    return out
+
+
 def revcomp_codes(codes: np.ndarray) -> np.ndarray:
     """Reverse-complement a base-code sequence (host side)."""
     return (3 - np.asarray(codes, dtype=np.uint8))[..., ::-1]

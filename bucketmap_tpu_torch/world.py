@@ -26,10 +26,16 @@ def index_name(genome_mbp: float) -> str:
     return f"idx_{genome_mbp:g}rep2"
 
 
+def bench_genome(genome_mbp: float = 1700.0):
+    """The bench world's genome: the records its index was built from."""
+    return repeat_genome(int(genome_mbp * 1e6), seed=1, n_refs=4)
+
+
 def bench_world(cache_dir: str, genome_mbp: float = 1700.0,
-                n_reads: int = 131072, log=print):
+                n_reads: int = 131072, log=print, genome=None):
     """(index, fastq_path, ground_truth_path, seconds spent making what
-    the cache lacked)."""
+    the cache lacked). `genome`, bench_genome(genome_mbp) made by the
+    caller, saves making it again where the cache lacks something."""
     cfg = MapperConfig(bucket_len=65536, read_len=300)
     name = index_name(genome_mbp)
     tag = f"g{genome_mbp:g}rep2m_r{n_reads}"
@@ -37,13 +43,13 @@ def bench_world(cache_dir: str, genome_mbp: float = 1700.0,
     fastq = os.path.join(cache_dir, f"reads_{tag}.fastq")
     gt = os.path.join(cache_dir, f"reads_{tag}.position_ground_truth")
     t0 = time.perf_counter()
-    genome = None
     if os.path.exists(os.path.join(cache_dir, f"{name}.bmtpu.json")):
         index = builder.load_index(cache_dir, name)
     else:
-        genome = repeat_genome(int(genome_mbp * 1e6), seed=1, n_refs=4)
-        log(f"[world] genome {genome_mbp:g} Mbp made in "
-            f"{time.perf_counter() - t0:.1f} s")
+        if genome is None:
+            genome = bench_genome(genome_mbp)
+            log(f"[world] genome {genome_mbp:g} Mbp made in "
+                f"{time.perf_counter() - t0:.1f} s")
         t1 = time.perf_counter()
         index = builder.build_index(genome, cfg)
         builder.save_index(index, cache_dir, name)
@@ -51,7 +57,7 @@ def bench_world(cache_dir: str, genome_mbp: float = 1700.0,
             f"({index.n_buckets} buckets)")
     if not os.path.exists(fastq):
         if genome is None:
-            genome = repeat_genome(int(genome_mbp * 1e6), seed=1, n_refs=4)
+            genome = bench_genome(genome_mbp)
         t1 = time.perf_counter()
         sim = ShortReadSimulator(cfg, substitution_rate=0.002,
                                  insertion_rate=0.00025,

@@ -73,11 +73,27 @@ Phases, each reported on its own line:
      exact_search_batch on the card, equal to the CPU on every lane and
      to backward_search on the first 256 non-empty ranges, its ms per
      call and launches (torch.profiler through utils.debug.maybe_trace);
-     FMIndexMapper on the card against the CPU's on 1,024 reads.
+     FMIndexMapper on the card against the CPU's on 1,024 reads;
+ 12. the research tree: (a) RepetitiveRegionFilter (k=9) over every
+     bucket of the bench world's genome (profiles and the Jaccard matrix
+     on the card), its 64 x 2,048 block at seeded bucket ids equal to the
+     CPU's from those buckets' own profiles, symmetric, zero diagonal;
+     seconds, device peak, pairs with JI > 0.5; (b) MLPBucketClassifier
+     (k=9, d_model=2048) on a 20 Mbp random genome (306 buckets): three
+     steps on the card and on the CPU from one seeded initialisation
+     (losses within 1e-4 relative, parameters after step one within
+     1e-5), then a fit of MLP_STEPS steps on the card, ms a step and its
+     accuracy on 1,024 fresh reads (floor 0.5); (c) DQNAgent (k=6,
+     d_model=512) on tests/test_research.py's environment, final average
+     reward above 0.4; no kernel launched;
+ 13. experiments.error_sweep_production.run on the bench world's index
+     and genome, 16,384 reads at each read length 100, 150 and 300 with
+     0.2% substitutions and 0.025% indels; the 300 bp row at phase 4's
+     floors, the map kernels launched.
 Each phase checks the launches of the kernels its path runs. Any failure
-raises and exits non-zero, and so does finding jax or the JAX package
-imported. The last two lines are a JSON object per kernel and the run's
-JSON result.
+raises and exits non-zero, and so does finding jax, flax, optax, the JAX
+package or its research tree imported. The last two lines are a JSON
+object per kernel and the run's JSON result.
 """
 
 from __future__ import annotations
@@ -110,6 +126,11 @@ DP_OPS_PER_CELL = 15          # int ops of one DP cell's recurrence
 SCRATCH_Q = 8192              # a query width whose band-128 strip needs scratch
 WIDE_S = 32                   # samples per read-strand of the six-plane checks
 FM_MIN_AT_TRUTH = 0.75        # FMIndexMapper (max_errors=1): reads at their locus
+MLP_STEPS = 1000              # phase 12's fit of the k=9 MLP, 128 reads a step
+MLP_MIN_ACCURACY = 0.5        # its floor on 1,024 fresh reads (chance 1/306)
+MLP_GRAD_TOL = 1e-5           # step one's gradients, card against CPU,
+                              # relative to each tensor's largest (float32
+                              # sums of up to 2,048 terms in either order)
 
 
 def keep_first_sub_batch(al, run):
@@ -1010,6 +1031,214 @@ def fm_phase(torch, dev, genome_bp: int = 4_600_000, n_reads: int = BATCH,
         raise RuntimeError("FMIndexMapper found too few reads at their locus")
 
 
+def sync(torch, dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def step_one_errors(torch, net, ref, eps: float = 1e-8):
+    """After one Adam step of two copies of a network from the same
+    weights on the same batch: (largest gradient difference relative to
+    its tensor's largest gradient, largest parameter difference where the
+    reference's |gradient| >= eps, the same where it is below, the count
+    of those entries). Adam's first step is lr * g / (|g| + eps): below
+    eps it is lr / eps = 1e5 times the gradient, so a float32 rounding of
+    a cancelling sum moves it by ~1e-5 there, and only the gradient says
+    whether the two agree."""
+    grad_err = step_err = tiny_err = 0.0
+    n_tiny = 0
+    for a, b in zip(net.parameters(), ref.parameters()):
+        g = b.grad
+        grad_err = max(grad_err, float((a.grad.cpu() - g).abs().max()
+                                       / g.abs().max()))
+        diff = (a.detach().cpu() - b.detach()).abs()
+        tiny = g.abs() < eps
+        n_tiny += int(tiny.sum())
+        if (~tiny).any():
+            step_err = max(step_err, float(diff[~tiny].max()))
+        if tiny.any():
+            tiny_err = max(tiny_err, float(diff[tiny].max()))
+    return grad_err, step_err, tiny_err, n_tiny
+
+
+def research_phase(torch, dev, genome, cfg, block=(64, 2048),
+                   mlp_genome_bp: int = 20_000_000, d_model: int = 2048,
+                   fit_steps: int = MLP_STEPS, dqn_d_model: int = 512) -> None:
+    """Phase 12, the research tree on `dev`: (a) the repeat filter over
+    every bucket of `genome`, its Jaccard block at block[0] x block[1]
+    seeded bucket ids equal to the CPU's from those buckets' own profiles;
+    (b) the MLP classifier: three steps on `dev` and on the CPU from one
+    seeded initialisation, then a fit on `dev` and its accuracy; (c) the
+    DQN on tests/test_research.py's environment. No kernel launches."""
+    import numpy as np
+
+    from bucketmap_tpu_torch import kernels
+    from bucketmap_tpu_torch.config import MapperConfig
+    from bucketmap_tpu_torch.index.builder import iterate_buckets
+    from bucketmap_tpu_torch.research import neural
+    from bucketmap_tpu_torch.sim.simulator import random_genome
+
+    cuda = torch.device(dev).type == "cuda"
+    kernels.reset_launches()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    # (a) the repeat filter over the whole genome
+    filt = neural.RepetitiveRegionFilter(cfg, k=9, device=dev)
+    t0 = time.perf_counter()
+    prof = filt.read(genome)
+    sync(torch, dev)
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ji = filt.ji_matrix(prof)
+    ji_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else 0.0
+    B = prof.shape[0]
+    symmetric = np.array_equal(ji, ji.T)
+    diag_zero = not np.diag(ji).any()
+    pairs = int(np.count_nonzero(ji > 0.5)) // 2
+    ji_mean = float(ji.sum(dtype=np.float64)) / max(1, B * (B - 1))
+    rng = np.random.default_rng(12)
+    rows = rng.choice(B, min(block[0], B), replace=False)
+    cols = rng.choice(B, min(block[1], B), replace=False)
+    buckets = [c for _rid, _start, c in iterate_buckets(genome, cfg)]
+    cpu_filt = neural.RepetitiveRegionFilter(cfg, k=9, device="cpu")
+    t0 = time.perf_counter()
+    pr = cpu_filt.profile_buckets([buckets[i] for i in rows])
+    pc = cpu_filt.profile_buckets([buckets[i] for i in cols])
+    want = neural.jaccard(pr @ pc.T, pr.sum(1), pc.sum(1))
+    want[torch.from_numpy(rows[:, None] == cols[None, :])] = 0.0
+    cpu_s = time.perf_counter() - t0
+    prof_equal = (torch.equal(prof[torch.from_numpy(rows).to(prof.device)]
+                              .cpu(), pr)
+                  and torch.equal(prof[torch.from_numpy(cols).to(prof.device)]
+                                  .cpu(), pc))
+    block_equal = np.array_equal(ji[np.ix_(rows, cols)], want.numpy())
+    log(f"[research] repeat filter (k=9) on {dev}: {B} buckets x "
+        f"{prof.shape[1]} canonical 9-mers ({prof.numel() * 4 / 1e9:.2f} GB "
+        f"of profiles), read {read_s:.2f} s; ji_matrix ({B} x {B}, "
+        f"{ji.nbytes / 1e9:.2f} GB, {2 * B * B * prof.shape[1] / 1e12:.1f} "
+        f"T flop, TF32 "
+        f"{'on' if torch.backends.cuda.matmul.allow_tf32 else 'off'}) "
+        f"{ji_s:.2f} s with the copy to the host; device peak {peak:.2f} GiB; "
+        f"pairs with JI > 0.5: {pairs}, mean JI off the diagonal "
+        f"{ji_mean:.4f}, largest {float(ji.max()):.4f}; symmetric "
+        f"{symmetric}, zero diagonal "
+        f"{diag_zero}; block {len(rows)} x {len(cols)} equal to the CPU's "
+        f"{block_equal} (profiles equal {prof_equal}; the CPU {cpu_s:.2f} s)")
+    if not (symmetric and diag_zero and block_equal and prof_equal):
+        raise RuntimeError("the repeat filter's Jaccard matrix differs from "
+                           "the CPU's")
+    del prof, ji, buckets, pr, pc, want, filt
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (b) the MLP classifier at its full width
+    mlp_cfg = MapperConfig(bucket_len=65536, read_len=300)
+    ds = neural.ReadDataset(random_genome(mlp_genome_bp, seed=3, n_refs=2),
+                            mlp_cfg, seed=4)
+    clfs = [neural.MLPBucketClassifier(k=9, d_model=d_model, seed=0,
+                                       device=d) for d in (dev, "cpu")]
+    for clf in clfs:
+        clf.init(ds.n_buckets)
+    n_params = sum(p.numel() for p in clfs[1].net.parameters())
+    same_init = all(torch.equal(a.cpu(), b) for a, b in
+                    zip(clfs[0].net.parameters(), clfs[1].net.parameters()))
+    losses = ([], [])
+    for step in range(3):
+        codes, lens, labels = ds.batch(128)
+        labels = torch.from_numpy(labels.astype(np.int64))
+        for clf, out in zip(clfs, losses):
+            out.append(float(clf.train_step(clf.profiles(codes, lens),
+                                            labels.to(clf.device))))
+        if step == 0:
+            grad_err, step_err, tiny_err, n_tiny = step_one_errors(
+                torch, clfs[0].net, clfs[1].net)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(*losses))
+    log(f"[research] MLP (k=9, d_model={d_model}, {ds.n_buckets} buckets, "
+        f"{n_params} parameters): the same initialisation on {dev} and the "
+        f"CPU {same_init}; three steps, losses {losses[0]} on {dev}, "
+        f"{losses[1]} on the CPU (largest relative difference {loss_rel:.3g}"
+        f"); step one: gradients within {grad_err:.3g} of each tensor's "
+        f"largest, parameters within "
+        f"{step_err:.3g} where |gradient| >= Adam's eps, and within "
+        f"{tiny_err:.3g} on the {n_tiny} below it")
+    if not same_init or loss_rel > 1e-4 or grad_err > MLP_GRAD_TOL \
+            or step_err > 1e-5:
+        raise RuntimeError("the MLP's steps on the device differ from the "
+                           "CPU's")
+    clf = clfs[0]
+    del clfs
+    gc.collect()
+    sync(torch, dev)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    fit = clf.fit(ds, steps=fit_steps, batch_size=128)
+    sync(torch, dev)
+    fit_s = time.perf_counter() - t0
+    acc = clf.accuracy(ds, n=1024)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else 0.0
+    log(f"[research] MLP fit on {dev}: {fit_steps} steps of 128 reads in "
+        f"{fit_s:.2f} s = {fit_s / fit_steps * 1e3:.3f} ms a step (host "
+        f"batches and profiles included); loss {fit[0]:.4f} -> "
+        f"{np.mean(fit[-20:]):.4f} (last 20); accuracy on 1,024 fresh reads "
+        f"{acc:.4f} (chance {1 / ds.n_buckets:.4f}); device peak "
+        f"{peak:.2f} GiB")
+    if acc < MLP_MIN_ACCURACY:
+        raise RuntimeError(f"MLP accuracy {acc} below {MLP_MIN_ACCURACY}")
+    del clf, ds
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (c) the DQN on tests/test_research.py's environment
+    env = neural.ReferenceGenomeEnv(random_genome(8 * 1024, seed=15,
+                                                  n_refs=1),
+                                    bucket_length=1024, read_length=80,
+                                    substitution_rate=0.0, seed=16)
+    agent = neural.DQNAgent(env, k=6, d_model=dqn_d_model, lr=3e-3, eps=0.3,
+                            seed=17, device=dev)
+    t0 = time.perf_counter()
+    avg = agent.learn(total_timesteps=800, batch_size=32)
+    sync(torch, dev)
+    launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    log(f"[research] DQN (k=6, d_model={dqn_d_model}) on {dev}: 800 steps in "
+        f"{time.perf_counter() - t0:.2f} s, final average reward {avg:.2f} "
+        f"(random 0.125); kernel launches in phase 12 {launched}")
+    if avg <= 0.4:
+        raise RuntimeError(f"DQN final average reward {avg} <= 0.4")
+    if launched:
+        raise RuntimeError(f"the research tree launched kernels: {launched}")
+
+
+def sweep_phase(torch, dev, index, genome, cache_dir: str,
+                n: int = BATCH) -> None:
+    """Phase 13: experiments.error_sweep_production.run on the bench world
+    at three read lengths, 0.2% substitutions and 0.025% indels; the
+    300 bp row at the main path's floors, the map kernels launched."""
+    from bucketmap_tpu_torch import kernels
+    from bucketmap_tpu_torch.experiments import error_sweep_production
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rows = error_sweep_production.run(index, genome, cache_dir, n=n,
+                                      read_lens=(100, 150, 300),
+                                      sub_rates=(0.002,),
+                                      indel_rates=(0.00025,), device=dev)
+    launches = dict(kernels.LAUNCHES)
+    log(f"[sweep] {len(rows)} configurations of {n} reads in "
+        f"{time.perf_counter() - t0:.1f} s (simulation and warm-up "
+        f"included); launches {launches}")
+    last = rows[-1]
+    if last["pct_mapped"] < MIN_MAPPED or \
+            last["pct_correct_position"] < MIN_CORRECT:
+        raise RuntimeError(f"the sweep's 300 bp row is below the floor: "
+                           f"{last}")
+    if torch.device(dev).type == "cuda":
+        check_map_launches(launches, MAP_KERNELS, "the production sweep")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--genome-mbp", type=float, default=1700.0)
@@ -1062,12 +1291,17 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s")
 
     # ---- 3. world --------------------------------------------------------
+    t0 = time.perf_counter()
+    genome = world.bench_genome(args.genome_mbp)   # phases 12-13 read it too
+    genome_s = time.perf_counter() - t0
     index, fastq, gt, world_s = world.bench_world(
-        os.path.join(HERE, ".bench_cache"), args.genome_mbp, args.reads)
+        os.path.join(HERE, ".bench_cache"), args.genome_mbp, args.reads,
+        genome=genome)
     cfg = index.config
-    log(f"[world] {args.genome_mbp:g} Mbp repeat genome, {index.n_buckets} "
-        f"buckets, {args.reads} reads of {cfg.read_len} bp, "
-        f"bucket_len {cfg.bucket_len}: ready in {world_s:.1f} s")
+    log(f"[world] {args.genome_mbp:g} Mbp repeat genome made in "
+        f"{genome_s:.1f} s, {index.n_buckets} buckets, {args.reads} reads of "
+        f"{cfg.read_len} bp, bucket_len {cfg.bucket_len}: ready in "
+        f"{world_s:.1f} s more")
 
     # ---- 4. main path ----------------------------------------------------
     t0 = time.perf_counter()
@@ -1315,13 +1549,22 @@ def main() -> int:
 
     # ---- 11. the FM-index -------------------------------------------------
     fm_phase(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    foreign = sorted(m for m in sys.modules
-                     if m in ("jax", "bucketmap_tpu") or m.startswith("jax.")
-                     or m.startswith("bucketmap_tpu."))
+    # ---- 12. the research tree --------------------------------------------
+    research_phase(torch, dev, genome, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 13. the production error sweep, cut -----------------------------
+    sweep_phase(torch, dev, index, genome, os.path.join(HERE, ".bench_cache"))
+
+    foreign = sorted(m for m in sys.modules if m.split(".")[0] in
+                     ("jax", "flax", "optax", "bucketmap_tpu", "research"))
     if foreign:
-        raise RuntimeError(f"the port imported the JAX package or jax: "
-                           f"{foreign}")
+        raise RuntimeError(f"the port imported the JAX package, its research "
+                           f"tree or jax: {foreign}")
 
     log(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
