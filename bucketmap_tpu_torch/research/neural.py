@@ -13,9 +13,9 @@ explicit device:
   * ``MLPBucketClassifier`` (`seed_selection/dataset.py:111-129`):
     Linear(d_model) -> ReLU -> Linear(n_buckets), trained with Adam on the
     mean cross-entropy. Its layers start as flax's `Dense` does (LeCun
-    normal truncated at two standard deviations, zero bias), drawn on the
-    CPU from a `torch.Generator` seeded by `seed`, so the card and the CPU
-    start from the same weights.
+    normal truncated at two standard deviations, zero bias), drawn by
+    numpy's `Generator` seeded by `seed` in the calling thread, so the
+    card and the CPU start from the same weights.
   * ``RepetitiveRegionFilter`` (`seed_selection/filter.py:8-31`): the
     bucket-pairwise Jaccard-index matrix as one (B, G) x (G, B) product
     and inclusion-exclusion. Each intersection is a sum of 0/1 products
@@ -129,18 +129,33 @@ class ReadDataset:
 # The one-hidden-layer network of both models
 # ---------------------------------------------------------------------------
 
+def truncated_normal(gen: np.random.Generator, shape) -> np.ndarray:
+    """float32 unit normal draws truncated to [-2, 2], the draws outside
+    drawn again, all in the calling thread."""
+    w = gen.standard_normal(shape, dtype=np.float32)
+    flat = w.reshape(-1)
+    out = np.flatnonzero(np.abs(flat) > 2)
+    while out.size:
+        flat[out] = gen.standard_normal(out.size, dtype=np.float32)
+        out = out[np.abs(flat[out]) > 2]
+    return w
+
+
 def mlp(n_in: int, d: int, n_out: int, seed: int) -> nn.Sequential:
     """Linear(n_in, d) -> ReLU -> Linear(d, n_out) on the CPU, initialised
     as flax's Dense: weights LeCun normal truncated at +-2 standard
-    deviations, biases zero, drawn from torch.Generator(seed)."""
+    deviations, biases zero, drawn from np.random.default_rng(seed).
+    torch's trunc_normal_ spreads its erfinv over the intra-op threads,
+    and two of its draws with one seed in one long process differed past
+    element 2^27 of a 2^28-element weight."""
     net = nn.Sequential(nn.utils.skip_init(nn.Linear, n_in, d), nn.ReLU(),
                         nn.utils.skip_init(nn.Linear, d, n_out))
-    gen = torch.Generator().manual_seed(seed)
+    gen = np.random.default_rng(seed)
     with torch.no_grad():
         for layer in (net[0], net[2]):
-            nn.init.trunc_normal_(layer.weight, 0.0, 1.0, -2.0, 2.0,
-                                  generator=gen)
-            layer.weight.mul_(math.sqrt(1.0 / layer.in_features) / _TRUNC_STD)
+            w = truncated_normal(gen, tuple(layer.weight.shape))
+            w *= np.float32(math.sqrt(1.0 / layer.in_features) / _TRUNC_STD)
+            layer.weight.copy_(torch.from_numpy(w))
             layer.bias.zero_()
     return net
 

@@ -1,15 +1,19 @@
 """The bench world: a seeded repeat-structured genome, its index and
 simulated 300 bp reads with ground truth, cached on disk.
 
-Made exactly as `bench.py` makes its default align-free workload
-(repeat_genome seed 1 over 4 references, MapperConfig(bucket_len=65536,
-read_len=300), ShortReadSimulator seed 2 at dwgsim-like error rates),
-with the same cache file names, so one cache serves both. Host-only: no
-device work happens here.
+Made exactly as `bench.py` makes its workloads (repeat_genome seed 1
+over 4 references, MapperConfig(bucket_len=65536, read_len=300),
+ShortReadSimulator seed 2 at dwgsim-like error rates), with the same
+cache file names, so one cache serves both: the default align-free
+world, its FracMinHash variant (`kmer_fraction`, the 3.1 Gbp f=0.25
+world), and the ONT long reads (`long_world`, mapped at `ont_config`'s
+query flags on the shared index). Host-only: no device work happens
+here.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 
@@ -18,12 +22,30 @@ import numpy as np
 from bucketmap_tpu_torch.config import MapperConfig
 from bucketmap_tpu_torch.index import builder
 from bucketmap_tpu_torch.io.fastq import ReadBatch, iter_fastq_batches
-from bucketmap_tpu_torch.sim.simulator import ShortReadSimulator, repeat_genome
+from bucketmap_tpu_torch.sim.simulator import (LongReadSimulator,
+                                               ShortReadSimulator,
+                                               repeat_genome)
 
 
-def index_name(genome_mbp: float) -> str:
+def _genome_tag(genome_mbp: float, kmer_fraction: float) -> str:
+    """bench.py's genome tag: the f suffix only where f != 1, so that the
+    default world keeps its cache names."""
+    return f"{genome_mbp:g}rep2" + (f"_f{kmer_fraction:g}"
+                                    if kmer_fraction != 1.0 else "")
+
+
+def index_name(genome_mbp: float, kmer_fraction: float = 1.0) -> str:
     """The indicator under which `bench_world` saves its index."""
-    return f"idx_{genome_mbp:g}rep2"
+    return f"idx_{_genome_tag(genome_mbp, kmer_fraction)}"
+
+
+def ont_config(cfg: MapperConfig) -> MapperConfig:
+    """The reference's long-read query flags, -s 30 -e 0.9 -n 0.1 -p 20
+    -u 5 (bench.py's BMTPU_BENCH_LONG=1), on an index's config: they
+    change sampling and thresholds only, so the index is shared."""
+    return dataclasses.replace(cfg, mapper_samples=30, seed_miss_rate=0.9,
+                               indel_rate=0.1, locator_samples=20,
+                               quality_threshold=5)
 
 
 def bench_genome(genome_mbp: float = 1700.0):
@@ -32,13 +54,17 @@ def bench_genome(genome_mbp: float = 1700.0):
 
 
 def bench_world(cache_dir: str, genome_mbp: float = 1700.0,
-                n_reads: int = 131072, log=print, genome=None):
+                n_reads: int = 131072, log=print, genome=None,
+                kmer_fraction: float = 1.0):
     """(index, fastq_path, ground_truth_path, seconds spent making what
     the cache lacked). `genome`, bench_genome(genome_mbp) made by the
-    caller, saves making it again where the cache lacks something."""
-    cfg = MapperConfig(bucket_len=65536, read_len=300)
-    name = index_name(genome_mbp)
-    tag = f"g{genome_mbp:g}rep2m_r{n_reads}"
+    caller, saves making it again where the cache lacks something.
+    kmer_fraction < 1 keeps that FracMinHash fraction of the q-grams in
+    the coarse index (bench.py's BMTPU_BENCH_FRAC)."""
+    cfg = MapperConfig(bucket_len=65536, read_len=300,
+                       kmer_fraction=kmer_fraction)
+    name = index_name(genome_mbp, kmer_fraction)
+    tag = f"g{_genome_tag(genome_mbp, kmer_fraction)}m_r{n_reads}"
     os.makedirs(cache_dir, exist_ok=True)
     fastq = os.path.join(cache_dir, f"reads_{tag}.fastq")
     gt = os.path.join(cache_dir, f"reads_{tag}.position_ground_truth")
@@ -67,6 +93,28 @@ def bench_world(cache_dir: str, genome_mbp: float = 1700.0,
         log(f"[world] {n_reads} reads simulated in "
             f"{time.perf_counter() - t1:.1f} s")
     return index, fastq, gt, time.perf_counter() - t0
+
+
+def long_world(cache_dir: str, genome, n_reads: int, genome_mbp: float = 1700.0,
+               log=print):
+    """(fastq_path, ground_truth_path, seconds spent simulating): n_reads
+    ONT-like reads of ~7.5 kbp (5-15 kbp) at 2% substitutions, 2%
+    insertions and 2% deletions from `genome`, bench_genome(genome_mbp),
+    as bench.py's BMTPU_BENCH_LONG=1 simulates them, under its names."""
+    tag = f"g{_genome_tag(genome_mbp, 1.0)}m_r{n_reads}_long"
+    os.makedirs(cache_dir, exist_ok=True)
+    fastq = os.path.join(cache_dir, f"reads_{tag}.fastq")
+    gt = os.path.join(cache_dir, f"reads_{tag}.position_ground_truth")
+    t0 = time.perf_counter()
+    if not os.path.exists(fastq):
+        sim = LongReadSimulator(genome, mean_len=7500, sd_len=1500,
+                                min_len=5000, substitution_rate=0.02,
+                                insertion_rate=0.02, deletion_rate=0.02,
+                                seed=2)
+        sim.generate(cache_dir, f"reads_{tag}", n_reads)
+        log(f"[world] {n_reads} long reads simulated in "
+            f"{time.perf_counter() - t0:.1f} s")
+    return fastq, gt, time.perf_counter() - t0
 
 
 def first_reads(fastq_path: str, n: int) -> ReadBatch:

@@ -73,7 +73,12 @@ Phases, each reported on its own line:
      exact_search_batch on the card, equal to the CPU on every lane and
      to backward_search on the first 256 non-empty ranges, its ms per
      call and launches (torch.profiler through utils.debug.maybe_trace);
-     FMIndexMapper on the card against the CPU's on 1,024 reads;
+     FMIndexMapper, and FMIndexLocator (initialize, then locate), on the
+     card against the CPU's mapper on 1,024 reads; a BiFMIndex of the
+     genome's first 1 Mbp extended left and right over 256 seeded
+     20-mers (backward_search's range); a BucketFMIndexer of the genome,
+     saved and loaded, each of 256 seeded 20-mers found at its offset in
+     its bucket's index;
  12. the research tree: (a) RepetitiveRegionFilter (k=9) over every
      bucket of the bench world's genome (profiles and the Jaccard matrix
      on the card), its 64 x 2,048 block at seeded bucket ids equal to the
@@ -89,11 +94,38 @@ Phases, each reported on its own line:
  13. experiments.error_sweep_production.run on the bench world's index
      and genome, 16,384 reads at each read length 100, 150 and 300 with
      0.2% substitutions and 0.025% indels; the 300 bp row at phase 4's
-     floors, the map kernels launched.
+     floors, the map kernels launched;
+ 14. ONT long reads (bench.py's BMTPU_BENCH_LONG=1, cut from 100,000 to
+     16,384 reads of ~7.5 kbp at 2% substitutions, insertions and
+     deletions each) on phase 3's index at the reference's long-read
+     flags (-s 30 -e 0.9 -n 0.1 -p 20 -u 5): (a) align-free, mapped >= 97
+     and correct within bench.py's long-read tolerance (2% of the mean
+     length, +-150 at 7.5 kbp) >= 93, the three map kernels against
+     their plain versions on one batch of its segment rows (the coarse
+     score at 30 samples, five bit planes; the tally at 160 proposals);
+     (b) the segment-stitched align mode, mapped >= 97, correct within
+     +-10 >= 95, every CIGAR consuming its SEQ, MAPQ in [0, 60]; dp_runs
+     against dp_runs_plain on the stitcher's first DP sub-batch at the
+     geometry that call uses (band 128, lo 32, no wrap rule, 48 runs a
+     pair), the sub-batch's vector word for word; the host seconds of
+     the stitching loop;
+ 15. the GRCh38-scale world (bench.py's BMTPU_BENCH_GENOME_MBP=3100
+     BMTPU_BENCH_FRAC=0.25; repeat genome, FracMinHash f=0.25, cut from
+     1,000,000 to 131,072 reads), after every earlier device table is
+     freed: the seconds of the genome, the index, the reads and the
+     device tables; the tiled fine table (~47,300 buckets, 3.1e9 slots,
+     past 2^31 elements); map_fastq over all reads, mapped >= 97 and
+     correct within +-10 >= 95; the map kernels against their plain
+     versions on one batch, fine_window on windows past element 2^31 of
+     its table (the batch's and windows made from the table's own slots
+     up to its last), coarse_score at the full batch on the ~1,479-word
+     occupancy table, and the batch's step vector through the tiled
+     path word for word the scan path's (the JAX build's route here).
 Each phase checks the launches of the kernels its path runs. Any failure
 raises and exits non-zero, and so does finding jax, flax, optax, the JAX
 package or its research tree imported. The last two lines are a JSON
-object per kernel and the run's JSON result.
+object per kernel (with its launches in phases 14-15 under
+"mode_launches") and the run's JSON result.
 """
 
 from __future__ import annotations
@@ -131,27 +163,13 @@ MLP_MIN_ACCURACY = 0.5        # its floor on 1,024 fresh reads (chance 1/306)
 MLP_GRAD_TOL = 1e-5           # step one's gradients, card against CPU,
                               # relative to each tensor's largest (float32
                               # sums of up to 2,048 terms in either order)
-
-
-def keep_first_sub_batch(al, run):
-    """run() with the aligner's _sub_batch wrapped so that its first
-    result is kept: (run()'s result, (qcodes host array, (qlen, bucket_ids,
-    offsets, is_rc, width) on the card)) of the first DP sub-batch."""
-    first = []
-    sub_batch = al._sub_batch
-
-    def keep(*a):
-        out = sub_batch(*a)
-        if not first:
-            first.append(out)
-        return out
-
-    al._sub_batch = keep
-    try:
-        res = run()
-    finally:
-        al._sub_batch = sub_batch
-    return res, first[0]
+ONT_READS = 16384             # phase 14's long reads (bench.py: 100,000)
+ONT_MIN_CORRECT_DRIFT = 93.0  # align-free, correct within bench.py's
+                              # long-read tolerance (reference 95.68)
+GRCH38_MBP, GRCH38_FRAC = 3100.0, 0.25   # phase 15's world
+GRCH38_READS = 8 * BATCH      # its short reads (bench.py: 1,000,000)
+WINDOW_MADE = 4096            # windows made from the 3.1 Gbp table's slots
+PAST_ELEMENT = 2**31          # phase 15 holds fine_window past this element
 
 
 def log(msg: str) -> None:
@@ -447,14 +465,16 @@ def full_size(torch, timer, name, what, fn, bound) -> None:
 
 def check_cigars(sam_path: str):
     """(records, records with CIGAR '*', records whose CIGAR's M+I length
-    differs from the read length)."""
-    n = star = bad = 0
+    differs from the read length, records whose MAPQ lies outside
+    [0, 60])."""
+    n = star = bad = bad_mapq = 0
     with open(sam_path) as f:
         for line in f:
             if line[0] == "@":
                 continue
             c = line.split("\t", 10)
             n += 1
+            bad_mapq += not 0 <= int(c[4]) <= 60
             if c[5] == "*":
                 star += 1
                 continue
@@ -466,7 +486,7 @@ def check_cigars(sam_path: str):
                     qlen += num if ch in "MI" else 0
                     num = 0
             bad += qlen != len(c[9])
-    return n, star, bad
+    return n, star, bad, bad_mapq
 
 
 def card_name_and_limit() -> str:
@@ -485,6 +505,133 @@ def free_port() -> int:
 def max_abs_err(torch, got, want) -> int:
     return max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
                if a.numel() else 0 for a, b in zip(got, want))
+
+
+def map_kernel_cases(torch, pipe, batch):
+    """The first BATCH segment rows of `batch` through the step of `pipe`
+    up to each map kernel: (the three kernels' check_kernel cases, the
+    step's inputs {"packed", "rows_all", "table", "wargs"}). The coarse
+    case takes COARSE_ROWS read-strands, the window and tally cases the
+    first vote chunk."""
+    from bucketmap_tpu_torch.ops.coarse import coarse_score, coarse_score_plain
+    from bucketmap_tpu_torch.ops.encoding import unpack_reads
+    from bucketmap_tpu_torch.ops.vote import (fine_window, fine_window_plain,
+                                              tally, tally_plain)
+
+    dm = pipe.device
+    cfg = dm.cfg
+    n_buckets = dm.index.n_buckets
+    codes, quals, seg_len, _, _ = pipe._all_segments(batch)
+    packed = dm.pack(codes[:BATCH], quals[:BATCH], seg_len[:BATCH])
+    c, q_ok, lens = unpack_reads(packed, cfg.read_len, cfg.query_seed)
+    both, _, _ = dm.coarse.sample_hashes(c, q_ok, lens)
+    s = cfg.mapper_samples
+    rows_all = dm.coarse.gram_rows(both)
+    rows = rows_all[: COARSE_ROWS * s].contiguous()
+    table = dm.coarse.qgram_words
+    lanes = dm.compact_lanes(packed)
+    vargs = dm.chunk_args(lanes, 0)
+    wargs, tgt_idx = dm.fine.window_args(*vargs)
+    P, p = vargs[2].shape
+    pk = fine_window(*wargs)
+    targs = dm.fine.tally_args(pk.reshape(P, p, -1), tgt_idx, vargs[1])
+    cases = [
+        ("coarse_score", "bucketmap_tpu_torch/csrc/coarse_score.cu",
+         "bucketmap_tpu/ops/coarse.py:256",
+         lambda: coarse_score(table, rows, n_buckets, s),
+         lambda: coarse_score_plain(table, rows, n_buckets, s),
+         f"{COARSE_ROWS} read-strands x {s} samples ({s.bit_length()} bit "
+         f"planes) x {table.shape[1]} words",
+         coarse_bound(torch, table, rows, s)),
+        ("fine_window", "bucketmap_tpu_torch/csrc/fine_window.cu",
+         "bucketmap_tpu/ops/vote.py:54",
+         lambda: (fine_window(*wargs),), lambda: (fine_window_plain(*wargs),),
+         f"{wargs[1].shape[0]} windows of one {P}-lane vote chunk",
+         window_bound(torch, wargs[0], wargs[1], wargs[5])),
+        ("tally", "bucketmap_tpu_torch/csrc/tally.cu",
+         "bucketmap_tpu/ops/vote.py:186",
+         lambda: tally(*targs), lambda: tally_plain(*targs),
+         f"{P} pairs x {targs[0].shape[1]} proposals "
+         f"({int((targs[1] != 0).sum())} valid)",
+         tally_bound(torch, *targs[:5])),
+    ]
+    return cases, {"packed": packed, "rows_all": rows_all, "table": table,
+                   "wargs": wargs}
+
+
+def timed_map(torch, dev, pipe, fastq: str, sam: str):
+    """pipe.map_fastq(fastq, sam) with the launch counts set to 0 just
+    before it: (stats, seconds, launches, device peak GiB)."""
+    from bucketmap_tpu_torch import kernels
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    stats = pipe.map_fastq(fastq, sam)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return (stats, seconds, dict(kernels.LAUNCHES),
+            torch.cuda.max_memory_allocated(dev) / 2**30)
+
+
+def host_rss() -> str:
+    """This process's resident host memory now and its peak so far."""
+    from bucketmap_tpu_torch.utils.debug import resource_report
+
+    with open("/proc/self/statm") as f:
+        now = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    peak = resource_report()["peak_host_rss_kb"] * 1024
+    return (f"host RSS {now / 2**30:.2f} GiB (process peak so far "
+            f"{peak / 2**30:.2f} GiB)")
+
+
+def score_long(sam: str, gt: str, index, stats):
+    """bench.py's long-read scores: (% mapped, % correct within +-10, +-5,
+    and +-tol, tol) with tol = max(10, 2% of the mean read length)."""
+    from bucketmap_tpu_torch import world
+
+    tol = max(10, int(0.02 * stats.num_bases / max(1, stats.num_reads)))
+    mapped, c10 = world.score_sam(sam, gt, index)
+    c5 = world.score_sam(sam, gt, index, tol=5)[1]
+    return mapped, c10, c5, world.score_sam(sam, gt, index, tol=tol)[1], tol
+
+
+class CallLog:
+    """While entered, the named functions of `owner` (an object's methods
+    or a module's functions) are wrapped to keep, per name, the seconds
+    spent in them, the keyword arguments of each call and the first
+    call's positional arguments and result; the originals are put back on
+    exit."""
+
+    def __init__(self, owner, *names):
+        self.owner, self.names = owner, names
+        self.seconds = dict.fromkeys(names, 0.0)
+        self.kwargs = {n: [] for n in names}
+        self.first_args = {}
+        self.first = {}
+        self.saved = {}
+
+    def __enter__(self):
+        for name in self.names:
+            fn = self.saved[name] = getattr(self.owner, name)
+
+            def wrapped(*a, _fn=fn, _name=name, **kw):
+                self.kwargs[_name].append(kw)
+                t0 = time.perf_counter()
+                try:
+                    out = _fn(*a, **kw)
+                finally:
+                    self.seconds[_name] += time.perf_counter() - t0
+                self.first_args.setdefault(_name, a)
+                self.first.setdefault(_name, out)
+                return out
+
+            setattr(self.owner, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.owner, name, fn)
 
 
 def mesh_phase(torch, timer, index, fastq, gt, sam, dev, rows_all, packed,
@@ -584,21 +731,16 @@ def mesh_phase(torch, timer, index, fastq, gt, sam, dev, rows_all, packed,
 
     # the staged mesh pipeline over all reads
     sam_mesh = os.path.join(HERE, ".bench_cache", "chip_smoke_mesh.sam")
-    torch.cuda.reset_peak_memory_stats(dev)
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    stats = pipe.map_fastq(fastq, sam_mesh)
-    torch.cuda.synchronize()
-    map_s = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    stats, map_s, launches, peak = timed_map(torch, dev, pipe, fastq,
+                                             sam_mesh)
     mapped, correct = world.score_sam(sam_mesh, gt, index)
     same = filecmp.cmp(sam, sam_mesh, shallow=False)
     log(f"[mesh] staged mesh pipeline: {stats.num_reads} reads in "
         f"{map_s:.2f} s = {stats.num_reads / map_s:.1f} reads/s; pct_mapped "
         f"{mapped:.2f} pct_correct_position(+-10) {correct:.2f}; SAM equal "
         f"to phase 4's {same}; step+decode {stats.fine_seconds:.2f} s; "
-        f"device peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
-        f"launches {launches}; card {card_name_and_limit()}")
+        f"device peak {peak:.2f} GiB; launches {launches}; card "
+        f"{card_name_and_limit()}")
     if not same:
         raise RuntimeError("the staged mesh pipeline's SAM differs from the "
                            "single-device SAM")
@@ -692,21 +834,15 @@ def vote_paths_phase(torch, index, fastq, gt, sam, dev, packed, vec_single,
         raise RuntimeError("the scan path's step differs from phase 5's")
     del lanes
     sam_scan = os.path.join(HERE, ".bench_cache", "chip_smoke_scan.sam")
-    torch.cuda.reset_peak_memory_stats(dev)
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    stats = pipe.map_fastq(fastq, sam_scan)
-    torch.cuda.synchronize()
-    map_s = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    stats, map_s, launches, peak = timed_map(torch, dev, pipe, fastq,
+                                             sam_scan)
     mapped, correct = world.score_sam(sam_scan, gt, index)
     same = filecmp.cmp(sam, sam_scan, shallow=False)
     log(f"[scan] {stats.num_reads} reads in {map_s:.2f} s = "
         f"{stats.num_reads / map_s:.1f} reads/s; pct_mapped {mapped:.2f} "
         f"pct_correct_position(+-10) {correct:.2f}; SAM equal to phase 4's "
         f"{same}; step+decode {stats.fine_seconds:.2f} s; device peak "
-        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; launches "
-        f"{launches}; card {card_name_and_limit()}")
+        f"{peak:.2f} GiB; launches {launches}; card {card_name_and_limit()}")
     if not same:
         raise RuntimeError("the scan path's SAM differs from phase 4's")
     if mapped < MIN_MAPPED or correct < MIN_CORRECT:
@@ -930,19 +1066,27 @@ def cli_phase(torch, device: str, index, cache_dir: str, idx_name: str,
 
 
 def fm_phase(torch, dev, genome_bp: int = 4_600_000, n_reads: int = BATCH,
-             n_map: int = 1024, n_scalar: int = 256,
+             n_map: int = 1024, n_scalar: int = 256, bi_bp: int = 1_000_000,
              cache_dir: str = os.path.join(HERE, ".bench_cache")) -> None:
     """Phase 11, the FM-index: built on an E. coli-scale random genome;
     the two seeds (max_errors=1) of n_reads simulated reads, put on the
     strand the index holds, searched on `dev` lane for lane as on the CPU
     and, for the first n_scalar non-empty ranges, as backward_search
-    finds them; its time and launches per call; FMIndexMapper on `dev`
-    against the CPU's on the first n_map reads."""
+    finds them; its time and launches per call; FMIndexMapper on `dev`,
+    and FMIndexLocator on `dev` (initialize, then locate), against the
+    CPU's mapper on the first n_map reads; a BiFMIndex of the genome's
+    first bi_bp bases, extended left and right over n_scalar seeded
+    20-mers; a BucketFMIndexer of the genome, saved and loaded, its
+    bucket indexes finding n_scalar seeded 20-mers of their buckets."""
     import numpy as np
 
     from bucketmap_tpu_torch.config import MapperConfig
-    from bucketmap_tpu_torch.index.fm import (FMIndex, FMIndexMapper,
+    from bucketmap_tpu_torch.index.builder import iterate_buckets
+    from bucketmap_tpu_torch.index.fm import (BiFMIndex, BucketFMIndexer,
+                                              FMIndex, FMIndexLocator,
+                                              FMIndexMapper,
                                               exact_search_batch)
+    from bucketmap_tpu_torch.io.fasta import FastaRecord
     from bucketmap_tpu_torch.io.fastq import read_fastq
     from bucketmap_tpu_torch.ops.host_encoding import revcomp_codes
     from bucketmap_tpu_torch.sim.simulator import (ShortReadSimulator,
@@ -1030,10 +1174,83 @@ def fm_phase(torch, dev, genome_bp: int = 4_600_000, n_reads: int = BATCH,
     if at_truth < FM_MIN_AT_TRUTH * n_map:
         raise RuntimeError("FMIndexMapper found too few reads at their locus")
 
+    # the rest of the family: the locator, the bidirectional index and the
+    # per-bucket indexes
+    fm_dir = os.path.join(cache_dir, "fm")
+    locator = FMIndexLocator(max_errors=1, device=dev)
+    t0 = time.perf_counter()
+    locator.initialize(genome, fm_dir, "fm_locator")
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    located = locator.locate(codes[:n_map], lens[:n_map])
+    log(f"[fm] FMIndexLocator on {dev}: initialize (index built and saved) "
+        f"{init_s:.2f} s, locate {n_map} reads {time.perf_counter() - t0:.2f} "
+        f"s; hits equal to the CPU mapper's {located == hits[1]}")
+    if located != hits[1]:
+        raise RuntimeError("FMIndexLocator's hits on the device differ from "
+                           "the CPU mapper's")
+    rng = np.random.default_rng(11)
+    cut = [FastaRecord(r.id, r.codes[:bi_bp // len(genome)]) for r in genome]
+    t0 = time.perf_counter()
+    bi = BiFMIndex.build(cut)
+    bi_s = time.perf_counter() - t0
+    bi_ok = 0
+    for _ in range(n_scalar):
+        rec = cut[int(rng.integers(len(cut)))].codes
+        at = int(rng.integers(len(rec) - 20))
+        pat = rec[at:at + 20]
+        left = right = bi.init_range()
+        for c in pat[::-1]:
+            left = bi.extend_left(left, int(c))
+        for c in pat:
+            right = bi.extend_right(right, int(c))
+        lo_, hi_ = bi.fwd.backward_search(pat)
+        bi_ok += (left[:2] == (lo_, hi_) and hi_ > lo_
+                  and right[1] - right[0] == hi_ - lo_
+                  and left[3] - left[2] == hi_ - lo_)
+    bucket_cfg = MapperConfig(bucket_len=65536, read_len=300)
+    t0 = time.perf_counter()
+    n_fm_buckets = BucketFMIndexer(bucket_cfg).index(genome, fm_dir,
+                                                     "fm_buckets")
+    bfm_s = time.perf_counter() - t0
+    loaded = BucketFMIndexer.load(bucket_cfg, fm_dir, "fm_buckets")
+    buckets = [c for _rid, _start, c in iterate_buckets(genome, bucket_cfg)]
+    bfm_ok = 0
+    for _ in range(n_scalar):
+        b = int(rng.integers(len(buckets)))
+        at = int(rng.integers(len(buckets[b]) - 20))
+        bfm_ok += at in set(loaded.buckets[b].find_all(buckets[b][at:at + 20])
+                            .tolist())
+    log(f"[fm] BiFMIndex of {sum(len(r.codes) for r in cut)} bp built in "
+        f"{bi_s:.2f} s: {bi_ok} of {n_scalar} 20-mers give backward_search's "
+        f"range extending left and its width extending right; "
+        f"BucketFMIndexer: {n_fm_buckets} bucket indexes built and saved in "
+        f"{bfm_s:.2f} s, loaded back, {bfm_ok} of {n_scalar} 20-mers found "
+        f"at their offset in their bucket's index")
+    if bi_ok != n_scalar or n_fm_buckets != len(buckets) \
+            or bfm_ok != n_scalar:
+        raise RuntimeError("the bidirectional or per-bucket FM-index "
+                           "searches differ")
+
 
 def sync(torch, dev) -> None:
     if torch.device(dev).type == "cuda":
         torch.cuda.synchronize()
+
+
+def param_diff(torch, net, ref) -> list:
+    """Per parameter of two copies of a network: (elements that differ,
+    the largest difference, the first differing flat index or -1, the
+    values of `net` and `ref` there)."""
+    out = []
+    for a, b in zip(net.parameters(), ref.parameters()):
+        a, b = a.detach().cpu().reshape(-1), b.detach().cpu().reshape(-1)
+        ne = torch.nonzero(a != b).flatten()
+        i = int(ne[0]) if ne.numel() else -1
+        out.append((ne.numel(), float((a - b).abs().max()), i,
+                    float(a[i]) if i >= 0 else None,
+                    float(b[i]) if i >= 0 else None))
+    return out
 
 
 def step_one_errors(torch, net, ref, eps: float = 1e-8):
@@ -1139,11 +1356,20 @@ def research_phase(torch, dev, genome, cfg, block=(64, 2048),
                             mlp_cfg, seed=4)
     clfs = [neural.MLPBucketClassifier(k=9, d_model=d_model, seed=0,
                                        device=d) for d in (dev, "cpu")]
-    for clf in clfs:
-        clf.init(ds.n_buckets)
+    # the initialisation, drawn on the CPU and copied to `dev`, held at
+    # each stage: a second CPU draw, the copy read back right after
+    # `.to(dev)`, and read back again once the device is idle
+    clfs[1].init(ds.n_buckets)
+    redraw = neural.mlp(clfs[1].n_canonical, d_model, ds.n_buckets, 0)
+    init_diff = {"CPU redraw": param_diff(torch, redraw, clfs[1].net)}
+    del redraw
+    clfs[0].init(ds.n_buckets)
+    init_diff["device copy"] = param_diff(torch, clfs[0].net, clfs[1].net)
+    sync(torch, dev)
+    init_diff["device copy re-read"] = param_diff(torch, clfs[0].net,
+                                                  clfs[1].net)
     n_params = sum(p.numel() for p in clfs[1].net.parameters())
-    same_init = all(torch.equal(a.cpu(), b) for a, b in
-                    zip(clfs[0].net.parameters(), clfs[1].net.parameters()))
+    same_init = not any(d[0] for diffs in init_diff.values() for d in diffs)
     losses = ([], [])
     for step in range(3):
         codes, lens, labels = ds.batch(128)
@@ -1157,7 +1383,9 @@ def research_phase(torch, dev, genome, cfg, block=(64, 2048),
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(*losses))
     log(f"[research] MLP (k=9, d_model={d_model}, {ds.n_buckets} buckets, "
         f"{n_params} parameters): the same initialisation on {dev} and the "
-        f"CPU {same_init}; three steps, losses {losses[0]} on {dev}, "
+        f"CPU {same_init} (per stage and tensor: differing elements, the "
+        f"largest difference, the first differing element and its values "
+        f"there: {init_diff}); three steps, losses {losses[0]} on {dev}, "
         f"{losses[1]} on the CPU (largest relative difference {loss_rel:.3g}"
         f"); step one: gradients within {grad_err:.3g} of each tensor's "
         f"largest, parameters within "
@@ -1239,6 +1467,327 @@ def sweep_phase(torch, dev, index, genome, cache_dir: str,
         check_map_launches(launches, MAP_KERNELS, "the production sweep")
 
 
+def ont_phase(torch, timer, dev, index, genome, cache_dir: str,
+              main_launches: dict, genome_mbp: float) -> dict:
+    """Phase 14, ONT long reads on the bench world: ONT_READS reads of
+    ~7.5 kbp (world.long_world) mapped on `index` at the reference's
+    long-read flags (world.ont_config): (a) align-free, the accuracy
+    floors, the map kernels against their plain versions on one batch of
+    its segment rows; (b) the segment-stitched align mode, its floors,
+    CIGAR lengths and MAPQ range, dp_runs and dp_fwd against their plain
+    versions on the stitcher's first DP sub-batch at the geometry that
+    call uses, the first packed-ops re-run (dp_fwd, which writes the
+    records of an overflowing sub-batch) against the same path on
+    dp_fwd_plain, and the host seconds of the stitching loop. genome_mbp
+    names the reads' cache files. Returns each run's launches by run
+    name."""
+    import dataclasses
+    from unittest import mock
+
+    import numpy as np
+
+    from bucketmap_tpu_torch import world
+    from bucketmap_tpu_torch.device import upload_u32
+    from bucketmap_tpu_torch.mapper.pipeline import BucketMapPipeline
+    from bucketmap_tpu_torch.ops import align as align_ops
+    from bucketmap_tpu_torch.ops.align import (dp_fwd, dp_fwd_plain, dp_runs,
+                                               dp_runs_plain, pack_qcodes,
+                                               run_budget, runs_vector)
+
+    n_reads = ONT_READS
+    fastq, gt, sim_s = world.long_world(cache_dir, genome, n_reads,
+                                        genome_mbp, log=log)
+    ont = dataclasses.replace(index, config=world.ont_config(index.config))
+    cfg = ont.config
+    out = {}
+
+    def report_run(what, sam, stats, seconds, launches, peak):
+        mapped, c10, c5, ctol, tol = score_long(sam, gt, ont, stats)
+        log(f"[ont] {what}: {stats.num_reads} reads, {stats.num_bases} bases "
+            f"(mean {stats.num_bases / stats.num_reads:.1f} bp), in "
+            f"{seconds:.2f} s = {stats.num_reads / seconds:.1f} reads/s, "
+            f"{stats.num_bases / seconds:.1f} bases/s; pct_mapped "
+            f"{mapped:.2f}; pct_correct_position +-10 {c10:.2f}, +-5 "
+            f"{c5:.2f}, +-{tol} {ctol:.2f}; locations/read "
+            f"{stats.mapped_locations / stats.num_reads:.4f}; candidate "
+            f"pairs {stats.candidate_pairs}; step+decode "
+            f"{stats.fine_seconds:.2f} s, segmenting "
+            f"{stats.coarse_seconds:.2f} s, SAM {stats.output_seconds:.2f} s;"
+            f" device peak {peak:.2f} GiB; {host_rss()}; launches {launches}")
+        if stats.num_reads < n_reads:
+            raise RuntimeError(f"{what}: mapped {stats.num_reads} of "
+                               f"{n_reads} reads")
+        return mapped, c10, ctol
+
+    # (a) align-free
+    pipe = BucketMapPipeline(ont, device=dev, batch_size=BATCH,
+                             pair_batch=BATCH)
+    log(f"[ont] {n_reads} long reads ready in {sim_s:.1f} s; flags -s "
+        f"{cfg.mapper_samples} -e {cfg.seed_miss_rate} -n {cfg.indel_rate} "
+        f"-p {cfg.locator_samples} -u {cfg.quality_threshold} on phase 3's "
+        f"index; {cfg.num_segment_samples} segments of {cfg.read_len} bp a "
+        f"read")
+    sam = os.path.join(cache_dir, "chip_smoke_ont.sam")
+    stats, seconds, launches, peak = timed_map(torch, dev, pipe, fastq, sam)
+    mapped, _, ctol = report_run("align-free", sam, stats, seconds, launches,
+                                 peak)
+    if mapped < MIN_MAPPED or ctol < ONT_MIN_CORRECT_DRIFT:
+        raise RuntimeError(f"ONT align-free below the floor: mapped "
+                           f"{mapped:.2f} (>= {MIN_MAPPED}), correct within "
+                           f"the drift tolerance {ctol:.2f} (>= "
+                           f"{ONT_MIN_CORRECT_DRIFT})")
+    check_map_launches(launches, MAP_KERNELS, "ONT align-free")
+    out["ont"] = launches
+    batch = world.first_reads(fastq, -(-BATCH // cfg.num_segment_samples))
+    cases, _ = map_kernel_cases(torch, pipe, batch)
+    for case in cases:
+        check_kernel(torch, timer, *case, launches[case[0]],
+                     main_launches[case[0]])
+    del pipe, cases, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the segment-stitched align mode
+    pipe = BucketMapPipeline(ont, device=dev, align=True, batch_size=BATCH,
+                             pair_batch=BATCH)
+    al = pipe.aligner
+    sam_al = os.path.join(cache_dir, "chip_smoke_ont_align.sam")
+    with CallLog(pipe, "_align_long_emit", "_emit_records") as emit, \
+            CallLog(al, "align_batch_runs_stream", "_sub_batch",
+                    "_ops_rerun") as dp:
+        stats, seconds, launches, peak = timed_map(torch, dev, pipe, fastq,
+                                                   sam_al)
+    mapped, c10, _ = report_run("stitched align", sam_al, stats, seconds,
+                                launches, peak)
+    n_rec, n_star, bad, bad_mapq = check_cigars(sam_al)
+    dp_s = dp.seconds["align_batch_runs_stream"]
+    stitch_s = emit.seconds["_align_long_emit"] - dp_s \
+        - emit.seconds["_emit_records"]
+    log(f"[ont] stitched align: records {n_rec} (CIGAR '*' {n_star}, CIGAR "
+        f"query length != SEQ length {bad}, MAPQ outside [0, 60] "
+        f"{bad_mapq}); DP sub-batches {al.counts['sub_batches']} pairs "
+        f"{al.counts['pairs']} packed-ops re-runs {al.counts['ops_reruns']}; "
+        f"host seconds: the DP calls with their runs unpacked {dp_s:.2f}, "
+        f"the stitching loop {stitch_s:.2f}, SAM formatting "
+        f"{emit.seconds['_emit_records']:.2f}")
+    if mapped < MIN_MAPPED or c10 < MIN_CORRECT:
+        raise RuntimeError(f"ONT align below the floor: mapped {mapped:.2f} "
+                           f"(>= {MIN_MAPPED}), correct {c10:.2f} (>= "
+                           f"{MIN_CORRECT})")
+    if n_star or bad or bad_mapq:
+        raise RuntimeError("ONT align records with a '*' CIGAR, a CIGAR "
+                           "that does not consume SEQ or a MAPQ outside "
+                           "[0, 60]")
+    # a sub-batch with an unterminated traceback re-runs through the
+    # packed-ops path (dp_fwd), as the reference's does; at these flags
+    # every sub-batch has one
+    check_map_launches(launches, ALIGN_KERNELS + ("dp_fwd",),
+                       "ONT stitched align")
+    out["ont_align"] = launches
+
+    # dp_runs on the stitcher's first sub-batch, at the call's geometry
+    kw = dp.kwargs["align_batch_runs_stream"][0]
+    wrap, cap = kw["wrap_star"], kw["run_cap_per_pair"]
+    qc, (qlen, bids, offs, is_rc, width) = dp.first["_sub_batch"]
+    P = qc.shape[0]
+    Qp = -(-qc.shape[1] // 16) * 16
+    qfull = torch.zeros((P, Qp), dtype=torch.uint8, device=dev)
+    qfull[:, :qc.shape[1]] = torch.from_numpy(qc.astype("uint8")).to(dev)
+    textp, band, lo = al._text_windows(Qp, bids, offs, is_rc, width)
+    mr = run_budget(band)[1]
+    n = DP_PAIRS
+    dargs = (textp[:n].contiguous(), qfull[:n].contiguous(),
+             qlen[:n].contiguous(), width[:n].contiguous(), band, lo)
+    shape = (f"the stitcher's first sub-batch: {n} of its {P} segment "
+             f"pairs, Q {Qp}, band {band}, lo {lo}")
+    check_kernel(torch, timer, "dp_fwd", "bucketmap_tpu_torch/csrc/dp_fwd.cu",
+                 "bucketmap_tpu/ops/align.py:95", lambda: dp_fwd(*dargs),
+                 lambda: dp_fwd_plain(*dargs), shape,
+                 dp_bound(dargs[0], dargs[1], band), launches["dp_fwd"],
+                 main_launches["dp_fwd"])
+    check_kernel(torch, timer, "dp_runs", "bucketmap_tpu_torch/csrc/dp_fwd.cu",
+                 "bucketmap_tpu/ops/align.py:95",
+                 lambda: dp_runs(*dargs, wrap),
+                 lambda: dp_runs_plain(*dargs, wrap),
+                 f"{shape}, MR {mr}, wrap_star {wrap}, run cap {cap} a pair",
+                 runs_bound(*dargs[:3], band, mr), launches["dp_runs"],
+                 main_launches["dp_runs"])
+    # the first packed-ops re-run, whose scores, begins and ops became
+    # the sub-batch's records, against the same path on dp_fwd_plain
+    rerun = dp.first_args["_ops_rerun"]
+    with mock.patch.object(align_ops, "dp_fwd", dp_fwd_plain):
+        want = al._ops_rerun(*rerun)
+    equal = all(np.array_equal(a, b)
+                for a, b in zip(dp.first["_ops_rerun"], want))
+    log(f"[kernel] dp_fwd: the stitcher's first packed-ops re-run (pairs "
+        f"{rerun[-2]}..{rerun[-1]}, Q {rerun[0].shape[1]}) as its scores, "
+        f"begins and packed ops: equal to the same path on dp_fwd_plain "
+        f"{equal}")
+    if not equal:
+        raise RuntimeError("the stitcher's packed-ops re-run differs from "
+                           "the one dp_fwd_plain gives")
+    full = (textp, qfull, qlen, width, band, lo)
+    run_cap = -(-cap * P // 2) * 2
+    vec = al._align_runs(upload_u32(pack_qcodes(qc), dev), qlen, bids, offs,
+                         is_rc, width, run_cap=run_cap, wrap_star=wrap)
+    equal = torch.equal(vec, runs_vector(*dp_runs_plain(*full, wrap),
+                                         run_cap))
+    log(f"[kernel] dp_runs: the stitcher's whole first sub-batch ({P} "
+        f"pairs) as its vector (header {vec[:4].tolist()}, {vec.numel()} "
+        f"words): equal to dp_runs_plain's {equal}")
+    if not equal:
+        raise RuntimeError("the stitcher's sub-batch vector differs from the "
+                           "one dp_runs_plain gives")
+    full_size(torch, timer, "dp_runs", f"the stitcher's whole first "
+              f"sub-batch ({P} pairs)", lambda: dp_runs(*full, wrap),
+              runs_bound(textp, qfull, qlen, band, mr))
+    return out
+
+
+def grch38_phase(torch, timer, dev, cache_dir: str,
+                 main_launches: dict) -> dict:
+    """Phase 15, the GRCh38-scale world at FracMinHash f = GRCH38_FRAC
+    (world.bench_world): (a) the device tables (the tiled fine table past
+    2^31 elements), the map kernels against their plain versions on one
+    batch, fine_window on windows past element 2^31 of its table (the
+    batch's, and windows made from the table's own slots up to its last),
+    coarse_score at the full batch, and the batch's step vector through
+    the tiled path against the scan path's; (b) map_fastq align-free over
+    all reads, the accuracy floors. Returns the map's launches."""
+    import numpy as np
+
+    from bucketmap_tpu_torch import world
+    from bucketmap_tpu_torch.mapper import device_pipeline
+    from bucketmap_tpu_torch.mapper.pipeline import BucketMapPipeline
+    from bucketmap_tpu_torch.ops.coarse import coarse_score, coarse_score_plain
+    from bucketmap_tpu_torch.ops.vote import (WINDOW_ROWS, fine_window,
+                                              fine_window_plain)
+
+    genome_mbp, n_reads = GRCH38_MBP, GRCH38_READS
+    log(f"[grch38] device memory before the phase: "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated; "
+        f"{host_rss()}")
+    index, fastq, gt, world_s = world.bench_world(
+        cache_dir, genome_mbp, n_reads, log=log, kmer_fraction=GRCH38_FRAC)
+    cfg = index.config
+    absent = float((np.asarray(index.kmer_to_row) < 0).mean())
+    log(f"[grch38] {genome_mbp:g} Mbp world at kmer_fraction "
+        f"{cfg.kmer_fraction:g}: {index.n_buckets} buckets, occupancy "
+        f"{tuple(index.qgram_words.shape)} words ({absent:.4f} of the "
+        f"{cfg.num_qgrams} q-grams have no row), {n_reads} reads; ready in "
+        f"{world_s:.1f} s")
+
+    # the device tables
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with CallLog(device_pipeline, "build_fine_index_on_device") as build:
+        pipe = BucketMapPipeline(index, device=dev, batch_size=BATCH,
+                                 pair_batch=BATCH)
+        torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    dm = pipe.device
+    ftf = dm.fine.fine_packed.reshape(-1, 128)
+    log(f"[grch38] device tables ready in {init_s:.1f} s, of which the fine "
+        f"build {build.seconds['build_fine_index_on_device']:.1f} s; vote "
+        f"path {dm.vote_path}; fine table {tuple(dm.fine.fine_packed.shape)} "
+        f"int32 = {ftf.numel()} elements ({ftf.numel() / 2**31:.3f} x 2^31, "
+        f"{ftf.numel() * 4 / 2**30:.2f} GiB), search_steps "
+        f"{dm.fine.search_steps}; {torch.cuda.memory_allocated(dev) / 2**30:.2f}"
+        f" GiB allocated, build peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    if dm.vote_path != "tiled" or ftf.numel() <= PAST_ELEMENT:
+        raise RuntimeError(f"expected the tiled vote path over a table past "
+                           f"{PAST_ELEMENT} elements, got {dm.vote_path} over "
+                           f"{ftf.numel()}")
+    # (b) the map over all reads, before (a)'s checks add their launches
+    sam = os.path.join(cache_dir, "chip_smoke_grch38.sam")
+    stats, seconds, launches, peak = timed_map(torch, dev, pipe, fastq, sam)
+    mapped, correct = world.score_sam(sam, gt, index)
+    log(f"[grch38] {stats.num_reads} reads in {seconds:.2f} s = "
+        f"{stats.num_reads / seconds:.1f} reads/s; pct_mapped {mapped:.2f} "
+        f"pct_correct_position(+-10) {correct:.2f} locations/read "
+        f"{stats.mapped_locations / stats.num_reads:.4f}; candidate pairs "
+        f"{stats.candidate_pairs}; step+decode {stats.fine_seconds:.2f} s, "
+        f"SAM writer {stats.output_seconds:.2f} s; device peak {peak:.2f} "
+        f"GiB; {host_rss()}; launches {launches}; card "
+        f"{card_name_and_limit()}")
+    if stats.num_reads < n_reads:
+        raise RuntimeError(f"mapped {stats.num_reads} of {n_reads} reads")
+    if mapped < MIN_MAPPED or correct < MIN_CORRECT:
+        raise RuntimeError(f"the 3.1 Gbp world below the floor: mapped "
+                           f"{mapped:.2f}, correct {correct:.2f}")
+    check_map_launches(launches, MAP_KERNELS, "the 3.1 Gbp world")
+
+    # (a) the kernels on this world's inputs
+    cases, ins = map_kernel_cases(torch, pipe, world.first_reads(fastq, BATCH))
+    packed, rows_all, table = ins["packed"], ins["rows_all"], ins["table"]
+    # fine_window on windows past element PAST_ELEMENT: the batch's first
+    # vote chunk's, and windows made from the table's own slots
+    _, frow, lo_rel, hi_rel, low, n_occ, low_bits = ins["wargs"]
+    first_row = PAST_ELEMENT // 128
+    past = torch.nonzero(frow.to(torch.int64) >= first_row).flatten()
+    g = torch.Generator().manual_seed(15)
+    nt = ftf.shape[0]
+    mrow = torch.randint(first_row, nt - WINDOW_ROWS + 1, (WINDOW_MADE,),
+                         generator=g)
+    mrow[-1] = nt - WINDOW_ROWS
+    slot = torch.randint(0, WINDOW_ROWS * 128, (WINDOW_MADE,), generator=g)
+    mrow, slot = mrow.to(dev), slot.to(dev)
+    mlow = ftf.reshape(-1)[mrow * 128 + slot] & ((1 << low_bits) - 1)
+    wargs = (ftf, torch.cat([frow[past], mrow.to(torch.int32)]),
+             torch.cat([lo_rel[past], torch.zeros_like(mrow, dtype=torch.int32)]),
+             torch.cat([hi_rel[past], torch.full_like(
+                 mrow, WINDOW_ROWS * 128, dtype=torch.int32)]),
+             torch.cat([low[past], mlow.to(torch.int32)]), n_occ, low_bits)
+    cases[1] = (*cases[1][:3], lambda: (fine_window(*wargs),),
+                lambda: (fine_window_plain(*wargs),),
+                f"{past.numel()} of the first vote chunk's {frow.numel()} "
+                f"windows past element {PAST_ELEMENT} (buckets >= "
+                f"{-(-first_row // dm.fine.fine_packed.shape[1])}) and "
+                f"{WINDOW_MADE} made from the table's slots up to its last "
+                f"window (elements up to {ftf.numel()})",
+                window_bound(torch, ftf, wargs[1], n_occ))
+    for case in cases:
+        check_kernel(torch, timer, *case, launches[case[0]],
+                     main_launches[case[0]])
+    s = cfg.mapper_samples
+    check_equal(torch, "coarse_score", f"the full batch "
+                f"({rows_all.shape[0] // s} read-strands x {s} samples x "
+                f"{table.shape[1]} words)",
+                lambda: coarse_score(table, rows_all, index.n_buckets, s),
+                lambda: coarse_score_plain(table, rows_all, index.n_buckets,
+                                           s))
+    full_size(torch, timer, "coarse_score",
+              f"the full batch ({rows_all.shape[0] // s} read-strands, "
+              f"{table.shape[1]} words)",
+              lambda: coarse_score(table, rows_all, index.n_buckets, s),
+              coarse_bound(torch, table, rows_all, s))
+    vec = dm.step_packed(packed).cpu()
+    del cases, ins, rows_all, wargs, mrow, slot, mlow
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    scan = device_pipeline.DeviceMapper(index, dev, batch_size=BATCH,
+                                        vote_chunk=dm.vote_chunk,
+                                        fine_build="host")
+    scan_init = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vec_scan = scan.step_packed(packed).cpu()
+    scan_s = time.perf_counter() - t0
+    equal = torch.equal(vec, vec_scan)
+    log(f"[grch38] one batch's step vector ({vec.shape[0]} words) through "
+        f"the tiled path equal to the scan path's {equal} (scan mapper "
+        f"{scan.vote_path}, ready in {scan_init:.1f} s, its step "
+        f"{scan_s:.2f} s)")
+    if scan.vote_path != "scan" or not equal:
+        raise RuntimeError("the tiled path's step vector differs from the "
+                           "scan path's")
+    del scan, packed, pipe, dm, ftf
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--genome-mbp", type=float, default=1700.0)
@@ -1262,9 +1811,6 @@ def main() -> int:
                                                run_budget, runs_vector)
     from bucketmap_tpu_torch.ops.coarse import coarse_score, coarse_score_plain
     from bucketmap_tpu_torch.parallel import distributed
-    from bucketmap_tpu_torch.ops.encoding import unpack_reads
-    from bucketmap_tpu_torch.ops.vote import (fine_window, fine_window_plain,
-                                              tally, tally_plain)
     triton = importlib.util.find_spec("triton")
     nvcc = kernels.nvcc()
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
@@ -1313,13 +1859,7 @@ def main() -> int:
         f"{pipe.device.fine.search_steps}, low_bits {pipe.device.fine.low_bits}"
         f"; {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated)")
     sam = os.path.join(HERE, ".bench_cache", "chip_smoke.sam")
-    torch.cuda.reset_peak_memory_stats(dev)
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    stats = pipe.map_fastq(fastq, sam)
-    torch.cuda.synchronize()
-    map_s = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    stats, map_s, launches, peak = timed_map(torch, dev, pipe, fastq, sam)
     mapped, correct = world.score_sam(sam, gt, index)
     log(f"[map] {stats.num_reads} reads in {map_s:.2f} s = "
         f"{stats.num_reads / map_s:.1f} reads/s; pct_mapped {mapped:.2f} "
@@ -1327,8 +1867,7 @@ def main() -> int:
         f"{stats.mapped_locations / stats.num_reads:.4f}; candidate pairs "
         f"{stats.candidate_pairs}; step+decode {stats.fine_seconds:.2f} s, "
         f"segmenting {stats.coarse_seconds:.2f} s, SAM writer "
-        f"{stats.output_seconds:.2f} s; device peak "
-        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
+        f"{stats.output_seconds:.2f} s; device peak {peak:.2f} GiB; "
         f"launches {launches}")
     if stats.num_reads < args.reads:
         raise RuntimeError(f"mapped {stats.num_reads} of {args.reads} reads")
@@ -1346,44 +1885,12 @@ def main() -> int:
 
     # ---- 5. kernels against plain versions on main-path inputs ----------
     dm = pipe.device
-    batch = world.first_reads(fastq, BATCH)
-    codes, quals, seg_len, _, _ = pipe._all_segments(batch)
-    packed = dm.pack(codes, quals, seg_len)
-    c, q_ok, lens = unpack_reads(packed, cfg.read_len, cfg.query_seed)
-    both, _, _ = dm.coarse.sample_hashes(c, q_ok, lens)
-    s = cfg.mapper_samples
-    rows_all = dm.coarse.gram_rows(both)
-    rows = rows_all[: COARSE_ROWS * s].contiguous()
-    table = dm.coarse.qgram_words
-    lanes = dm.compact_lanes(packed)
-    vargs = dm.chunk_args(lanes, 0)
-    wargs, tgt_idx = dm.fine.window_args(*vargs)
-    P, p = vargs[2].shape
-    pk = fine_window(*wargs)
-    targs = dm.fine.tally_args(pk.reshape(P, p, -1), tgt_idx, vargs[1])
-
     timer = DeviceTimer(torch, dev)
-    cases = [
-        ("coarse_score", "bucketmap_tpu_torch/csrc/coarse_score.cu",
-         "bucketmap_tpu/ops/coarse.py:256",
-         lambda: coarse_score(table, rows, index.n_buckets, s),
-         lambda: coarse_score_plain(table, rows, index.n_buckets, s),
-         f"{COARSE_ROWS} read-strands x {s} samples x {table.shape[1]} words",
-         coarse_bound(torch, table, rows, s)),
-        ("fine_window", "bucketmap_tpu_torch/csrc/fine_window.cu",
-         "bucketmap_tpu/ops/vote.py:54",
-         lambda: (fine_window(*wargs),), lambda: (fine_window_plain(*wargs),),
-         f"{wargs[1].shape[0]} windows of one {P}-lane vote chunk",
-         window_bound(torch, wargs[0], wargs[1], wargs[5])),
-        ("tally", "bucketmap_tpu_torch/csrc/tally.cu",
-         "bucketmap_tpu/ops/vote.py:186",
-         lambda: tally(*targs), lambda: tally_plain(*targs),
-         f"{P} pairs x {targs[0].shape[1]} proposals "
-         f"({int((targs[1] != 0).sum())} valid)",
-         tally_bound(torch, *targs[:5])),
-    ]
+    cases, ins = map_kernel_cases(torch, pipe, world.first_reads(fastq, BATCH))
     report = [check_kernel(torch, timer, *case, launches[case[0]],
                            launches[case[0]]) for case in cases]
+    packed, rows_all, table = ins["packed"], ins["rows_all"], ins["table"]
+    s = cfg.mapper_samples
     wide = rows_all[: COARSE_ROWS * WIDE_S].contiguous()
     check_equal(torch, "coarse_score", f"{COARSE_ROWS} read-strands x "
                 f"{WIDE_S} samples (six bit planes) x {table.shape[1]} words",
@@ -1405,8 +1912,7 @@ def main() -> int:
               coarse_bound(torch, table, rows_all, s))
     # the single-device step's vector of this batch, for phase 8
     vec_single = dm.step_packed(packed).cpu()
-    del cases, pipe, dm, table, c, q_ok, lens, both, rows
-    del lanes, vargs, wargs, tgt_idx, pk, targs
+    del cases, ins, pipe, dm, table
     torch.cuda.empty_cache()
 
     # ---- 6. align mode ---------------------------------------------------
@@ -1419,17 +1925,11 @@ def main() -> int:
     al = pipe.aligner
     sam_al = os.path.join(HERE, ".bench_cache", "chip_smoke_align.sam")
 
-    def run_align():
-        torch.cuda.reset_peak_memory_stats(dev)
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        stats = pipe.map_fastq(fastq, sam_al)
-        torch.cuda.synchronize()
-        return stats, time.perf_counter() - t0, dict(kernels.LAUNCHES)
-
-    (stats, align_s, al_launches), first = keep_first_sub_batch(al, run_align)
+    with CallLog(al, "_sub_batch") as sub:
+        stats, align_s, al_launches, peak = timed_map(torch, dev, pipe,
+                                                      fastq, sam_al)
     mapped, correct = world.score_sam(sam_al, gt, index)
-    n_rec, n_star, bad = check_cigars(sam_al)
+    n_rec, n_star, bad, _ = check_cigars(sam_al)
     log(f"[align] {stats.num_reads} reads in {align_s:.2f} s = "
         f"{stats.num_reads / align_s:.1f} reads/s; pct_mapped {mapped:.2f} "
         f"pct_correct_position(+-10) {correct:.2f} locations/read "
@@ -1438,9 +1938,7 @@ def main() -> int:
         f"{al.counts['ops_reruns']}; locate (step+decode) "
         f"{stats.fine_seconds:.2f} s, segmenting {stats.coarse_seconds:.2f} s, "
         f"align+SAM {stats.output_seconds:.2f} s; records {n_rec} ('*' "
-        f"{n_star}); device peak "
-        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
-        f"launches {al_launches}")
+        f"{n_star}); device peak {peak:.2f} GiB; launches {al_launches}")
     if stats.num_reads < args.reads:
         raise RuntimeError(f"aligned {stats.num_reads} of {args.reads} reads")
     if mapped < MIN_MAPPED or correct < MIN_CORRECT:
@@ -1455,7 +1953,7 @@ def main() -> int:
         raise RuntimeError(f"align path never launched: {idle}")
 
     # ---- 7. the DP kernels on the main path's pairs ---------------------
-    qc, (qlen, bids, offs, is_rc, width) = first
+    qc, (qlen, bids, offs, is_rc, width) = sub.first["_sub_batch"]
     P = qc.shape[0]
     Qp = -(-qc.shape[1] // 16) * 16            # the runs path's query width
     qfull = torch.zeros((P, Qp), dtype=torch.uint8, device=dev)
@@ -1520,7 +2018,7 @@ def main() -> int:
         f"fused DP + traceback + RLE, packing), one call on an idle device: "
         f"{sub_ms:.4f} ms, of which windows {win_ms:.4f} ms; dp_runs on the "
         f"device {runs_full_ms:.4f} ms warm")
-    del pipe, al, first, qc, qfull, textp, dargs, full, qpk, vec, want
+    del pipe, al, sub, qc, qfull, textp, dargs, full, qpk, vec, want
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1559,6 +2057,20 @@ def main() -> int:
 
     # ---- 13. the production error sweep, cut -----------------------------
     sweep_phase(torch, dev, index, genome, os.path.join(HERE, ".bench_cache"))
+
+    # ---- 14. ONT long reads, align-free and stitched align ---------------
+    mode_launches = ont_phase(torch, timer, dev, index, genome,
+                              os.path.join(HERE, ".bench_cache"), launches,
+                              args.genome_mbp)
+    del genome, index, rows_all, packed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 15. the 3.1 Gbp FracMinHash f=0.25 world ------------------------
+    mode_launches[f"grch38_f{GRCH38_FRAC:g}"] = grch38_phase(
+        torch, timer, dev, os.path.join(HERE, ".bench_cache"), launches)
+    for k in report:
+        k["mode_launches"] = {m: n[k["name"]] for m, n in mode_launches.items()}
 
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in
                      ("jax", "flax", "optax", "bucketmap_tpu", "research"))

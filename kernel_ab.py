@@ -115,8 +115,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
-    from chip_smoke import (DeviceTimer, call_ms, card_name_and_limit,
-                            keep_first_sub_batch, log)
+    from chip_smoke import (CallLog, DeviceTimer, call_ms,
+                            card_name_and_limit, log)
     from bucketmap_tpu_torch import kernels, world
     from bucketmap_tpu_torch.device import upload_u32
     from bucketmap_tpu_torch.mapper.pipeline import BucketMapPipeline
@@ -314,8 +314,10 @@ def main() -> int:
     al_pipe = BucketMapPipeline(index, device=dev, align=True,
                                 batch_size=BATCH, pair_batch=BATCH)
     al = al_pipe.aligner
-    _, (qc, args_dev) = keep_first_sub_batch(al, lambda: al_pipe.map_fastq(
-        fastq, os.path.join(HERE, ".bench_cache", "kernel_ab_align.sam")))
+    with CallLog(al, "_sub_batch") as sub:
+        al_pipe.map_fastq(fastq, os.path.join(HERE, ".bench_cache",
+                                              "kernel_ab_align.sam"))
+    qc, args_dev = sub.first["_sub_batch"]
     parent_align = load_align(parent, parent_kernels)
     aligners = {"this": al,
                 "parent": parent_align.BandedAligner(index, dev,
