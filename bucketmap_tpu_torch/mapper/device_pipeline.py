@@ -26,6 +26,8 @@ rank holds the JAX mesh step's concatenated vector and decodes it alike.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -42,8 +44,13 @@ from bucketmap_tpu_torch.index.device_build import (build_fine_index_on_device,
 from bucketmap_tpu_torch.ops.coarse import CoarseMapper, coarse_tables
 from bucketmap_tpu_torch.ops.encoding import unpack_reads
 from bucketmap_tpu_torch.ops.vote import (MAX_OCC, FineLocator,
-                                          locator_sample_tab)
+                                          locator_sample_tab, tally)
 from bucketmap_tpu_torch.parallel.distributed import global_read_batch
+
+
+def no_stage(name: str):
+    """DeviceMapper's default stage hook: a context that does nothing."""
+    return contextlib.nullcontext()
 
 
 def shard_geometry(index: BucketIndex, Db: int) -> tuple[int, int, int]:
@@ -70,6 +77,22 @@ def default_fine_max_gb(device) -> float | None:
     if dev.type != "cuda":
         return None
     return torch.cuda.get_device_properties(dev).total_memory / 2 / 2**30
+
+
+def builds_fine_on_device(index: BucketIndex, device, fine_build: str = "auto",
+                          fine_max_gb: float | None = None,
+                          nrows: int | None = None) -> bool:
+    """Whether build_tables builds the tiled fine table on the device:
+    fine_build "device", or "auto" where the packed encoding applies and
+    its 4 bytes per slot of nrows buckets (default all) fit fine_max_gb
+    (default: default_fine_max_gb)."""
+    k = index.config.query_seed
+    lb = index.buckets_packed.shape[1] * 16
+    nrows = index.n_buckets if nrows is None else nrows
+    budget = default_fine_max_gb(device) if fine_max_gb is None else fine_max_gb
+    fits = budget is None or 4 * nrows * lb <= budget * 2**30
+    return fine_build == "device" or (fine_build == "auto" and fits
+                                      and packed_fine_applies(k, lb))
 
 
 def host_fine_arrays(index: BucketIndex) -> dict:
@@ -184,15 +207,12 @@ def build_tables(index: BucketIndex, device, mesh=None,
         if qw is None:
             raise ValueError("occupancy_build='device' needs index_seed <= 10")
     tables = coarse_tables(index, dev, shard=shard, qgram_words=qw)
-    k = index.config.query_seed
-    lb = index.buckets_packed.shape[1] * 16
     nrows = n if rows is None else rows[1] - rows[0]
-    budget = default_fine_max_gb(dev) if fine_max_gb is None else fine_max_gb
-    fits = budget is None or 4 * nrows * lb <= budget * 2**30
-    if fine_build == "device" or (fine_build == "auto" and fits
-                                  and packed_fine_applies(k, lb)):
+    if builds_fine_on_device(index, dev, fine_build, fine_max_gb, nrows):
         built = build_fine_index_on_device(index, dev, rows=rows, group=group)
         if built is None:
+            k = index.config.query_seed
+            lb = index.buckets_packed.shape[1] * 16
             raise ValueError(
                 f"fine_build='device': the packed fine index does not apply "
                 f"to query_seed {k} over {lb}-base buckets (needs k <= 15, "
@@ -238,7 +258,12 @@ class DeviceMapper:
     ("fused" or "staged", ops/coarse.py); fine_build, fine_max_gb,
     occupancy_build and buckets_packed pick how the tables are made
     (build_tables) unless `tables` are given. vote_path names the fine
-    tables' vote path ("tiled", "packed", "prefix", "sorted" or "scan")."""
+    tables' vote path ("tiled", "packed", "prefix", "sorted" or "scan").
+
+    `stage(name)` is entered around each sub-stage of a step: "unpack",
+    "coarse", "select", "prepare", "compact", per live vote chunk
+    "search" and "tally", and "pack". It does nothing by default; a
+    profiler swaps in one that times each (experiments/profile_step.py)."""
 
     def __init__(self, index: BucketIndex, device, batch_size: int = 8192,
                  pairs_per_read: int = 4, vote_chunk: int = 1024,
@@ -253,6 +278,7 @@ class DeviceMapper:
         self.batch_size = batch_size
         self.vote_chunk = vote_chunk
         self.mesh = mesh
+        self.stage = no_stage
         if tables is None:
             tables = build_tables(index, self.device, mesh,
                                   fine_build=fine_build,
@@ -332,18 +358,21 @@ class DeviceMapper:
         C = self.cfg.max_candidate_buckets
         P = self.lane_budget
         dev = self.device
-        samp_hash, samp_idx = self.fine.prepare(codes, qual_ok, lengths)
-        flat = cand.reshape(-1)
-        lane = torch.arange(flat.shape[0], dtype=torch.int64, device=dev)
-        rank = torch.cumsum(own.reshape(-1).to(torch.int64), dim=0)
-        dst = torch.where(own.reshape(-1) & (rank - 1 < P), rank - 1, P)
-        sel = torch.zeros(P + 1, dtype=torch.int64, device=dev)
-        sel = sel.scatter(0, dst, lane)[:P]
-        bucket = flat[sel].clamp(min=0).to(torch.int64)
-        vote_bucket = bucket if nown is None else \
-            (bucket - col0).clamp(0, nown - 1)
+        with self.stage("prepare"):
+            samp_hash, samp_idx = self.fine.prepare(codes, qual_ok, lengths)
+        with self.stage("compact"):
+            flat = cand.reshape(-1)
+            lane = torch.arange(flat.shape[0], dtype=torch.int64, device=dev)
+            rank = torch.cumsum(own.reshape(-1).to(torch.int64), dim=0)
+            dst = torch.where(own.reshape(-1) & (rank - 1 < P), rank - 1, P)
+            sel = torch.zeros(P + 1, dtype=torch.int64, device=dev)
+            sel = sel.scatter(0, dst, lane)[:P]
+            bucket = flat[sel].clamp(min=0).to(torch.int64)
+            vote_bucket = bucket if nown is None else \
+                (bucket - col0).clamp(0, nown - 1)
+            n_valid = int(rank[-1])       # the step's one host sync
         return {
-            "sel": sel, "n_valid": int(rank[-1]),
+            "sel": sel, "n_valid": n_valid,
             "lane_read": sel // (2 * C), "lane_rc": ((sel // C) % 2).bool(),
             "lane_bucket": bucket, "vote_bucket": vote_bucket,
             "samp_hash": samp_hash, "samp_idx": samp_idx, "lengths": lengths,
@@ -353,9 +382,15 @@ class DeviceMapper:
         """Single device: coarse query, then every valid lane is owned.
         The lanes of _lanes plus the per-read candidate counts."""
         cfg = self.cfg
-        codes, qual_ok, lengths = unpack_reads(packed, cfg.read_len,
-                                               cfg.query_seed)
-        cand, counts, _ = self.coarse.query(codes, qual_ok, lengths)
+        with self.stage("unpack"):
+            codes, qual_ok, lengths = unpack_reads(packed, cfg.read_len,
+                                                   cfg.query_seed)
+        with self.stage("coarse"):
+            cm, cc, planes, _, give_up = self.coarse.score(
+                codes, qual_ok, lengths, self.coarse.n_buckets)
+        with self.stage("select"):
+            cand, counts = self.coarse.select(cm, cc, planes, give_up)
+        del cm, cc, planes
         lanes = self._lanes(cand, cand >= 0, codes, qual_ok, lengths)
         lanes["counts"] = counts
         return lanes
@@ -421,11 +456,15 @@ class DeviceMapper:
         acc = torch.zeros(P, dtype=torch.int32, device=dev)
         for ci in range(min(P // ch, -(-nv // ch))):
             sl = slice(ci * ch, (ci + 1) * ch)
-            off[sl], votes[sl], acc[sl] = self.fine.vote(
-                *self.chunk_args(lanes, ci))
-        acc = acc.bool() & (torch.arange(P, device=dev) < nv)
-        return self._pack_result(acc, lanes["sel"], lanes["lane_bucket"], off,
-                                 votes, total_valid, nv, lanes["counts"], di)
+            with self.stage("search"):
+                targs = self.fine.search(*self.chunk_args(lanes, ci))
+            with self.stage("tally"):
+                off[sl], votes[sl], acc[sl] = tally(*targs)
+        with self.stage("pack"):
+            acc = acc.bool() & (torch.arange(P, device=dev) < nv)
+            return self._pack_result(acc, lanes["sel"], lanes["lane_bucket"],
+                                     off, votes, total_valid, nv,
+                                     lanes["counts"], di)
 
     def step_packed(self, packed: torch.Tensor) -> torch.Tensor:
         """packed: (B, cw+qw+1) packed reads on the device, with a mesh this

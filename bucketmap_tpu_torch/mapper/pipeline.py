@@ -31,7 +31,9 @@ from bucketmap_tpu_torch.io.fastq import ReadBatch, iter_fastq_batches
 from bucketmap_tpu_torch.io.sam import SamWriter
 from bucketmap_tpu_torch.ops.sampler import sample_deterministic
 from bucketmap_tpu_torch.device import resolve_device
-from bucketmap_tpu_torch.mapper.device_pipeline import DeviceMapper
+from bucketmap_tpu_torch.mapper.device_pipeline import (DeviceMapper,
+                                                       builds_fine_on_device,
+                                                       no_stage)
 from bucketmap_tpu_torch.ops.align import BandedAligner
 
 
@@ -84,6 +86,19 @@ def filter_best_locations(locs: list[Location], read_length: int,
     return best
 
 
+def default_pair_batch(index: BucketIndex, device, batch_size: int,
+                       align: bool = False, fine_build: str = "auto") -> int:
+    """bench.py's pair batch (the DP sub-batch, and the vote chunk's cap):
+    16384 pairs in align mode, the batch otherwise, and 1024 where the
+    vote takes the table-free scan path, whose (vote chunk, bucket_len)
+    intermediates it bounds: where no fine table is built on the device
+    (device_pipeline.builds_fine_on_device) and the index holds none."""
+    scan = not builds_fine_on_device(index, device, fine_build) and all(
+        getattr(index, n) is None
+        for n in ("fine_packed", "fine_ptab", "fine_pos"))
+    return 1024 if scan else 16384 if align else batch_size
+
+
 @dataclasses.dataclass
 class MapStats:
     num_reads: int = 0
@@ -98,7 +113,12 @@ class MapStats:
 
 class BucketMapPipeline:
     """fine_build and fine_max_gb pick the step's fine tables
-    (mapper/device_pipeline.py:build_tables)."""
+    (mapper/device_pipeline.py:build_tables). `stage(name)` is entered
+    around each part of a dispatch cycle in locate_chunks: "dispatch"
+    (pack, upload and the step), "download" (the device-to-host copy,
+    which waits for the step), "decode" and "extract" (the split retry of
+    an overflowing batch, with its own dispatches, included); it does
+    nothing by default (experiments/profile_driver.py times each)."""
 
     def __init__(self, index: BucketIndex, *, device, align: bool = False,
                  batch_size: int = 512, pair_batch: int = 256,
@@ -128,6 +148,7 @@ class BucketMapPipeline:
                                    fine_max_gb=fine_max_gb,
                                    buckets_packed=genome)
         self._bucket_sam_offset = index.ref_offset_of_bucket()
+        self.stage = no_stage
 
     # ------------------------------------------------------------------
     def _all_segments(self, batch: ReadBatch):
@@ -212,24 +233,26 @@ class BucketMapPipeline:
             host = self._run(codes, quals, seg_len, s, e)
             stats.fine_seconds += time.perf_counter() - t0
             t0 = time.perf_counter()
-            stats.candidate_pairs += int(host["total_valid"])
-            counts = host["counts"][: e - s]
-            reads_with_cand[seg_read[s + np.nonzero(counts.sum(axis=1) > 0)[0]]] = True
-            if self._overflow(host):
-                # lane/output budget overflow (repetitive genomes): redo
-                # the batch split in half; the per-read budget doubles
-                chunks = self._locate_split(batch, seg_read, seg_off, seg_len,
-                                            codes, quals, s, e)
-            else:
-                chunks = [self._extract_chunk(host, s, e, batch, seg_read,
-                                              seg_off, seg_len)]
-            r = np.concatenate([c[0] for c in chunks]).astype(np.int64)
-            bk = np.concatenate([c[1] for c in chunks])
-            off = np.concatenate([c[2] for c in chunks])
-            votes = np.concatenate([c[3] for c in chunks]).astype(np.int64)
-            orig = np.concatenate([c[4] for c in chunks])
-            so = np.concatenate([c[5] for c in chunks]).astype(np.int64)
-            order = np.lexsort((~orig, bk, r))
+            with self.stage("extract"):
+                stats.candidate_pairs += int(host["total_valid"])
+                counts = host["counts"][: e - s]
+                reads_with_cand[seg_read[s + np.nonzero(
+                    counts.sum(axis=1) > 0)[0]]] = True
+                if self._overflow(host):
+                    # lane/output budget overflow (repetitive genomes): redo
+                    # the batch split in half; the per-read budget doubles
+                    chunks = self._locate_split(batch, seg_read, seg_off,
+                                                seg_len, codes, quals, s, e)
+                else:
+                    chunks = [self._extract_chunk(host, s, e, batch, seg_read,
+                                                  seg_off, seg_len)]
+                r = np.concatenate([c[0] for c in chunks]).astype(np.int64)
+                bk = np.concatenate([c[1] for c in chunks])
+                off = np.concatenate([c[2] for c in chunks])
+                votes = np.concatenate([c[3] for c in chunks]).astype(np.int64)
+                orig = np.concatenate([c[4] for c in chunks])
+                so = np.concatenate([c[5] for c in chunks]).astype(np.int64)
+                order = np.lexsort((~orig, bk, r))
             stats.fine_seconds += time.perf_counter() - t0
             yield (r[order], bk[order], off[order], votes[order],
                    orig[order], so[order])
@@ -275,7 +298,12 @@ class BucketMapPipeline:
             c = np.pad(c, ((0, pad), (0, 0)))
             q = np.pad(q, ((0, pad), (0, 0)))
             sl = np.pad(sl, (0, pad))
-        return self.device.decode_out(self.device.step(c, q, sl).cpu().numpy())
+        with self.stage("dispatch"):
+            vec = self.device.step(c, q, sl)
+        with self.stage("download"):
+            vec = vec.cpu().numpy()
+        with self.stage("decode"):
+            return self.device.decode_out(vec)
 
     def _extract_chunk(self, host, s, e, batch, seg_read, seg_off, seg_len):
         """Accepted lanes of one decoded step -> location arrays in read

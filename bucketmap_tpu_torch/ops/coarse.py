@@ -352,26 +352,37 @@ class CoarseMapper:
     def extract_at_max(self, planes, max_hits, live, n: int, col0: int = 0):
         """Bucket ids at the read-strand's max hit count, ascending, -1
         padded to (B, 2, C): flag words of the buckets whose packed count
-        equals max_hits, then the c-th set bit of each row found by a
-        search over the running popcount and a halving ladder inside its
-        word (coarse.py:_extract_at_max2). planes cover the buckets from
-        col0 on; buckets from n on are masked."""
-        C = self.cfg.max_candidate_buckets
-        B, two, n_planes, nc = planes.shape
+        equals max_hits (at_max_words), then the c-th set bit of each row
+        (set_bit_ids) (coarse.py:_extract_at_max2). planes cover the
+        buckets from col0 on; buckets from n on are masked."""
+        return self.set_bit_ids(
+            self.at_max_words(planes, max_hits, live, n, col0), col0)
+
+    def at_max_words(self, planes, max_hits, live, n: int, col0: int = 0):
+        """(B, 2, nc) int32 flag words: bit b of word w set where bucket
+        col0 + 32w + b has max_hits hits on a live read-strand."""
+        nc = planes.shape[3]
         eq = None
-        for j in range(n_planes):
+        for j in range(planes.shape[2]):
             gb = ((max_hits >> j) & 1).bool()[..., None]
             pj = planes[:, :, j]
             term = torch.where(gb, pj, ~pj)
             eq = term if eq is None else (eq & term)
         colbase = torch.arange(nc, dtype=torch.int64, device=planes.device) * 32
         vmask = valid_word_mask(colbase, n - col0)
-        eq = torch.where(live[..., None], eq & vmask, 0)
+        return torch.where(live[..., None], eq & vmask, 0)
+
+    def set_bit_ids(self, eq, col0: int = 0):
+        """The first C set bits of each row of flag words as bucket ids,
+        ascending, -1 padded: a search over the running popcount for each
+        bit's word, then a halving ladder inside the word."""
+        C = self.cfg.max_candidate_buckets
+        B, two, _ = eq.shape
         pop = popcount32(eq).to(torch.int64)                        # (B,2,nc)
         wrank = torch.cumsum(pop, dim=-1)                           # inclusive
         total = wrank[..., -1:]
         tgt = torch.arange(1, C + 1, dtype=torch.int64,
-                           device=planes.device).expand(B, two, C)
+                           device=eq.device).expand(B, two, C)
         valid = tgt <= total
         word = torch.where(valid, rank_select(wrank, tgt), 0)
         wval = torch.gather(eq, -1, word).to(torch.int64) & MASK32
@@ -385,23 +396,36 @@ class CoarseMapper:
             wval = torch.where(hi, wval >> width, wval)
         return torch.where(valid, col0 + word * 32 + pos, -1).to(torch.int32)
 
-    def query(self, codes, qual_ok, lengths):
-        """codes (B, L) uint8, qual_ok (B, L-k+1) bool, lengths (B,) int.
-        Returns (cand (B, 2, C) int32 ascending, -1 padded; counts (B, 2)
-        int32; num_good (B,) int32). Axis 1: 0 = original strand, 1 =
-        reverse complement."""
+    def select(self, cm, cc, planes, give_up):
+        """The candidate policy over score's output: each read-strand's
+        max hit count and at-max count; read-strands below
+        min_coarse_hits, given up, or with more than C buckets at the max
+        keep none. Returns (cand (B, 2, C) int32 ascending, -1 padded;
+        counts (B, 2) int32, 0 where cleared)."""
+        max_hits, live, counts = self.policy(cm, cc, give_up)
+        return self.extract_at_max(planes, max_hits, live,
+                                   self.n_buckets), counts
+
+    def policy(self, cm, cc, give_up):
+        """select's policy: (max_hits (B, 2), live (B, 2) bool, counts (B,
+        2) int32)."""
         cfg = self.cfg
-        n = self.n_buckets
-        cm, cc, planes, num_good, give_up = self.score(codes, qual_ok,
-                                                       lengths, n)
         max_hits = cm.amax(dim=2)                                   # (B, 2)
         ok = (max_hits >= cfg.min_coarse_hits) & ~give_up[:, None]
         counts = torch.where((cm == max_hits[:, :, None]) & ok[..., None],
                              cc, 0).sum(dim=2).to(torch.int32)
         over = counts > cfg.max_candidate_buckets                  # clear
         counts = torch.where(over, 0, counts).to(torch.int32)
-        cand = self.extract_at_max(planes, max_hits, ok & ~over, n)
-        return cand, counts, num_good
+        return max_hits, ok & ~over, counts
+
+    def query(self, codes, qual_ok, lengths):
+        """codes (B, L) uint8, qual_ok (B, L-k+1) bool, lengths (B,) int.
+        Returns (cand (B, 2, C) int32 ascending, -1 padded; counts (B, 2)
+        int32; num_good (B,) int32). Axis 1: 0 = original strand, 1 =
+        reverse complement."""
+        cm, cc, planes, num_good, give_up = self.score(codes, qual_ok,
+                                                       lengths, self.n_buckets)
+        return self.select(cm, cc, planes, give_up) + (num_good,)
 
     def query_batch(self, codes: np.ndarray, quals: np.ndarray,
                     lengths: np.ndarray):

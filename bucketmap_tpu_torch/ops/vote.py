@@ -412,19 +412,26 @@ class FineLocator:
         occ_score = torch.stack(tops, dim=1).to(torch.int64)       # (P, p, O)
         return lpos - occ_score, occ_score > 0
 
-    def vote(self, bucket_ids, is_rc, samp_hash, samp_idx, seg_len):
-        """bucket_ids (P,), is_rc (P,) bool, samp_hash/samp_idx (P, p),
-        seg_len (P,). Returns (offset, votes, accept) (P,) int32: offset
-        is the segment start in the bucket."""
+    def search(self, bucket_ids, is_rc, samp_hash, samp_idx, seg_len):
+        """The vote up to the tally: each sample's occurrences in its
+        pair's bucket on this path (the fine-window kernel on the tiled
+        one) as the tally's arguments."""
         if self.path == "tiled":
             P, p = samp_hash.shape
             args, tgt_idx = self.window_args(bucket_ids, is_rc, samp_hash,
                                              samp_idx, seg_len)
             pk = fine_window(*args).reshape(P, p, MAX_OCC)
-            return tally(*self.tally_args(pk, tgt_idx, is_rc))
+            return self.tally_args(pk, tgt_idx, is_rc)
         tgt_hash, tgt_idx = self.targets(is_rc, samp_hash, samp_idx, seg_len)
         occ_pos, occ_valid = self.occurrences(bucket_ids, tgt_hash)
-        return tally(*self.proposal_args(occ_pos, occ_valid, tgt_idx, is_rc))
+        return self.proposal_args(occ_pos, occ_valid, tgt_idx, is_rc)
+
+    def vote(self, bucket_ids, is_rc, samp_hash, samp_idx, seg_len):
+        """bucket_ids (P,), is_rc (P,) bool, samp_hash/samp_idx (P, p),
+        seg_len (P,). Returns (offset, votes, accept) (P,) int32: offset
+        is the segment start in the bucket."""
+        return tally(*self.search(bucket_ids, is_rc, samp_hash, samp_idx,
+                                  seg_len))
 
     def tally_args(self, pk, tgt_idx, is_rc):
         """Tiled path: window slots (P, p, O), -1 where empty, -> the

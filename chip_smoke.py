@@ -120,7 +120,27 @@ Phases, each reported on its own line:
      its table (the batch's and windows made from the table's own slots
      up to its last), coarse_score at the full batch on the ~1,479-word
      occupancy table, and the batch's step vector through the tiled
-     path word for word the scan path's (the JAX build's route here).
+     path word for word the scan path's (the JAX build's route here);
+ 16. bench_torch.py and the profilers, after phase 15 (its ONT and
+     f=0.25 caches warm): the 1,000,000 reads of bench.py's default world
+     simulated after phase 14 from the genome phase 3 made (their seconds
+     on a line of their own); each bench_torch.py run in its own process,
+     so that its host RSS is its own: (1) at bench.py's defaults,
+     align-free, its accuracy columns BENCH_MODES_r05.json's (99.57 /
+     98.48 / 98.48 / 1.2222), io_native, the map kernels launched; (2) in
+     align mode at its defaults (batch 8,192), r05's 99.45 / 98.45 / 52.35
+     / 1.5584, dp_runs launched, phase 6's CIGAR check on its SAM; (3) BMTPU_BENCH_LONG=1 on phase 14's 16,384 reads (the same
+     cache names), align-free and in align mode, each run's columns
+     phase 14's; (4) the 3.1 Gbp f=0.25 world on phase 15's reads, its
+     columns phase 15's; then in this process (5) profile_step,
+     profile_coarse_sub and profile_select on the first 16,384 reads of
+     (1)'s FASTQ (the decomposition's vector step_packed's word for word,
+     the staged branch's score the fused one's, each part's result its
+     method's; the tables of device ms, launches and host ms by stage) and
+     profile_driver over 8 batches (the sequential cycle's SAM map_reads'
+     byte for byte); (6) profile_grch38_warmup on phase 15's world (index
+     load, init, first and steady batch), then profile_pipeline over 12
+     batches of its reads.
 Each phase checks the launches of the kernels its path runs. Any failure
 raises and exits non-zero, and so does finding jax, flax, optax, the JAX
 package or its research tree imported. The last two lines are a JSON
@@ -170,6 +190,14 @@ GRCH38_MBP, GRCH38_FRAC = 3100.0, 0.25   # phase 15's world
 GRCH38_READS = 8 * BATCH      # its short reads (bench.py: 1,000,000)
 WINDOW_MADE = 4096            # windows made from the 3.1 Gbp table's slots
 PAST_ELEMENT = 2**31          # phase 15 holds fine_window past this element
+BENCH_READS = 1000000         # phase 16: bench.py's default read count
+# BENCH_MODES_r05.json's accuracy columns at bench.py's defaults (the JAX
+# build's 1,000,000-read runs on the 1.7 Gbp world): mapped, correct within
+# +-10 and +-5, locations a read; the port computes the same integers
+R05 = {"align-free": (99.57, 98.48, 98.48, 1.2222),
+       "align": (99.45, 98.45, 52.35, 1.5584)}
+DRIVER_BATCHES = 8            # phase 16's profile_driver cycles
+PIPELINE_BATCHES = 12         # phase 16's profile_pipeline batches
 
 
 def log(msg: str) -> None:
@@ -594,6 +622,20 @@ def score_long(sam: str, gt: str, index, stats):
     mapped, c10 = world.score_sam(sam, gt, index)
     c5 = world.score_sam(sam, gt, index, tol=5)[1]
     return mapped, c10, c5, world.score_sam(sam, gt, index, tol=tol)[1], tol
+
+
+def bench_columns(mapped, c10, c5, stats, drift=None) -> dict:
+    """A run's accuracy columns as bench_torch.py prints them (and
+    bench.py): rounded to 2 digits, locations a read to 4; drift = (tol,
+    % correct within +-tol) for long reads."""
+    out = {"pct_mapped": round(mapped, 2),
+           "pct_correct_position": round(c10, 2),
+           "pct_correct_position_tol5": round(c5, 2),
+           "locations_per_read": round(stats.mapped_locations
+                                       / stats.num_reads, 4)}
+    if drift is not None:
+        out[f"pct_correct_position_tol{drift[0]}"] = round(drift[1], 2)
+    return out
 
 
 class CallLog:
@@ -1470,7 +1512,7 @@ def sweep_phase(torch, dev, index, genome, cache_dir: str,
 def ont_phase(torch, timer, dev, index, genome, cache_dir: str,
               main_launches: dict, genome_mbp: float) -> dict:
     """Phase 14, ONT long reads on the bench world: ONT_READS reads of
-    ~7.5 kbp (world.long_world) mapped on `index` at the reference's
+    ~7.5 kbp (world.bench_reads) mapped on `index` at the reference's
     long-read flags (world.ont_config): (a) align-free, the accuracy
     floors, the map kernels against their plain versions on one batch of
     its segment rows; (b) the segment-stitched align mode, its floors,
@@ -1479,8 +1521,8 @@ def ont_phase(torch, timer, dev, index, genome, cache_dir: str,
     call uses, the first packed-ops re-run (dp_fwd, which writes the
     records of an overflowing sub-batch) against the same path on
     dp_fwd_plain, and the host seconds of the stitching loop. genome_mbp
-    names the reads' cache files. Returns each run's launches by run
-    name."""
+    names the reads' cache files. Returns (each run's launches by run
+    name, each run's bench_columns: "align-free", "stitched align")."""
     import dataclasses
     from unittest import mock
 
@@ -1495,14 +1537,15 @@ def ont_phase(torch, timer, dev, index, genome, cache_dir: str,
                                                run_budget, runs_vector)
 
     n_reads = ONT_READS
-    fastq, gt, sim_s = world.long_world(cache_dir, genome, n_reads,
-                                        genome_mbp, log=log)
+    fastq, gt, sim_s = world.bench_reads(cache_dir, n_reads, genome_mbp,
+                                         genome, long=True, log=log)
     ont = dataclasses.replace(index, config=world.ont_config(index.config))
     cfg = ont.config
-    out = {}
+    out, cols = {}, {}
 
     def report_run(what, sam, stats, seconds, launches, peak):
         mapped, c10, c5, ctol, tol = score_long(sam, gt, ont, stats)
+        cols[what] = bench_columns(mapped, c10, c5, stats, (tol, ctol))
         log(f"[ont] {what}: {stats.num_reads} reads, {stats.num_bases} bases "
             f"(mean {stats.num_bases / stats.num_reads:.1f} bp), in "
             f"{seconds:.2f} s = {stats.num_reads / seconds:.1f} reads/s, "
@@ -1641,7 +1684,7 @@ def ont_phase(torch, timer, dev, index, genome, cache_dir: str,
     full_size(torch, timer, "dp_runs", f"the stitcher's whole first "
               f"sub-batch ({P} pairs)", lambda: dp_runs(*full, wrap),
               runs_bound(textp, qfull, qlen, band, mr))
-    return out
+    return out, cols
 
 
 def grch38_phase(torch, timer, dev, cache_dir: str,
@@ -1653,7 +1696,8 @@ def grch38_phase(torch, timer, dev, cache_dir: str,
     batch's, and windows made from the table's own slots up to its last),
     coarse_score at the full batch, and the batch's step vector through
     the tiled path against the scan path's; (b) map_fastq align-free over
-    all reads, the accuracy floors. Returns the map's launches."""
+    all reads, the accuracy floors. Returns (the map's launches, its
+    bench_columns)."""
     import numpy as np
 
     from bucketmap_tpu_torch import world
@@ -1703,6 +1747,8 @@ def grch38_phase(torch, timer, dev, cache_dir: str,
     sam = os.path.join(cache_dir, "chip_smoke_grch38.sam")
     stats, seconds, launches, peak = timed_map(torch, dev, pipe, fastq, sam)
     mapped, correct = world.score_sam(sam, gt, index)
+    cols = bench_columns(mapped, correct,
+                         world.score_sam(sam, gt, index, tol=5)[1], stats)
     log(f"[grch38] {stats.num_reads} reads in {seconds:.2f} s = "
         f"{stats.num_reads / seconds:.1f} reads/s; pct_mapped {mapped:.2f} "
         f"pct_correct_position(+-10) {correct:.2f} locations/read "
@@ -1785,7 +1831,155 @@ def grch38_phase(torch, timer, dev, cache_dir: str,
     del scan, packed, pipe, dm, ftf
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, cols
+
+
+def run_bench(what: str, cache_dir: str, timeout: float, device: str = "cuda",
+              **knobs):
+    """`python3 bench_torch.py` in its own process (its host RSS its own)
+    with the BMTPU_BENCH_* knobs given: logs its [bench] and [world] lines
+    and its JSON line; returns (the JSON object, its timed map's kernel
+    launches, the process's seconds). Raises where it fails."""
+    env = dict(os.environ, BMTPU_BENCH_CACHE=cache_dir,
+               **{f"BMTPU_BENCH_{k}": str(v) for k, v in knobs.items()})
+    t0 = time.perf_counter()
+    # through a shell that forks it: a process exec'd straight from this
+    # one starts its ru_maxrss at this process's peak (Linux keeps the
+    # high-water mark of the image it replaces); the shell's child starts
+    # from the shell's
+    res = subprocess.run(["sh", "-c", '"$0" "$1" --device "$2"; exit $?',
+                          sys.executable, os.path.join(HERE, "bench_torch.py"),
+                          device], cwd=HERE, env=env, capture_output=True,
+                         text=True, timeout=timeout)
+    seconds = time.perf_counter() - t0
+    launches = None
+    for ln in res.stderr.splitlines():
+        if ln.startswith(("[bench]", "[world]")):
+            log(f"[bench] {what}: {ln}")
+        marker = "kernel launches in the timed map: "
+        if marker in ln:
+            launches = json.loads(ln.split(marker, 1)[1])
+    if res.returncode or launches is None:
+        raise RuntimeError(f"bench_torch.py ({what}) failed, rc "
+                           f"{res.returncode}: {res.stderr[-3000:]}")
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    log(f"[bench] {what}: {json.dumps(out)} ({seconds:.1f} s of process)")
+    return out, launches, seconds
+
+
+def check_columns(what: str, got: dict, want: dict) -> None:
+    """Raise unless bench_torch's accuracy columns `got` equal `want`."""
+    diff = {k: (got.get(k), v) for k, v in want.items() if got.get(k) != v}
+    log(f"[bench] {what}: accuracy columns {'equal' if not diff else 'DIFFER'}"
+        f" {want if not diff else diff}")
+    if diff:
+        raise RuntimeError(f"{what}: bench_torch.py's columns (got, want) "
+                           f"{diff}")
+
+
+def bench_phase(torch, dev, cache_dir: str, genome_mbp: float, fastq: str,
+                ont_cols: dict, grch38_cols: dict) -> None:
+    """Phase 16, bench_torch.py and the profilers: (1) bench_torch.py at
+    bench.py's defaults, align-free (1,000,000 reads), its accuracy
+    columns R05's, io_native, the three map kernels launched; (2) in align
+    mode at its defaults, R05's columns, dp_runs launched, phase 6's CIGAR
+    check (query lengths) on its SAM; (3) BMTPU_BENCH_LONG=1 with phase 14's reads,
+    align-free and in align mode, each run's columns phase 14's; (4) the
+    3.1 Gbp f=0.25 world with phase 15's reads, its columns phase 15's;
+    (5) profile_step, profile_coarse_sub and profile_select on the first
+    16,384 reads of (1)'s FASTQ (the decomposition's vector step_packed's
+    word for word, the staged branch's score the fused one's, the
+    coarse and select decompositions equal to their methods) and
+    profile_driver over DRIVER_BATCHES batches (the sequential cycle's SAM
+    map_reads' byte for byte); (6) profile_grch38_warmup on phase 15's
+    world, then profile_pipeline over PIPELINE_BATCHES batches of its
+    reads. The R05 equality holds at 1,700 Mbp only; another genome size
+    reports the columns."""
+    from bucketmap_tpu_torch import world
+    from bucketmap_tpu_torch.experiments import (profile_coarse_sub,
+                                                 profile_driver,
+                                                 profile_grch38_warmup,
+                                                 profile_pipeline,
+                                                 profile_select, profile_step)
+    from bucketmap_tpu_torch.mapper.pipeline import BucketMapPipeline
+
+    mbp = {"GENOME_MBP": f"{genome_mbp:g}"}
+    one_m = {"READS": BENCH_READS, **mbp}
+    keys = ("pct_mapped", "pct_correct_position",
+            "pct_correct_position_tol5", "locations_per_read")
+    # (1) and (2): bench.py's defaults
+    for mode, knobs, kernels_run in (
+            ("align-free", {}, MAP_KERNELS),
+            ("align", {"ALIGN": 1}, ALIGN_KERNELS)):
+        out, launches, _ = run_bench(f"1M {mode}", cache_dir, 900, dev.type,
+                                     **one_m, **knobs)
+        check_map_launches(launches, kernels_run, f"bench_torch {mode}")
+        if not out["io_native"]:
+            raise RuntimeError("bench_torch.py ran without the C++ host "
+                               "library")
+        if genome_mbp == 1700:
+            check_columns(f"1M {mode} against BENCH_MODES_r05.json", out,
+                          dict(zip(keys, R05[mode])))
+        if mode == "align":
+            tag = world.reads_name(genome_mbp, BENCH_READS)[len("reads_"):]
+            n_rec, n_star, bad, bad_mapq = check_cigars(
+                os.path.join(cache_dir, f"out_{tag}_al.sam"))
+            log(f"[bench] 1M align: records {n_rec} (CIGAR '*' {n_star}, "
+                f"CIGAR query length != SEQ length {bad}, MAPQ outside "
+                f"[0, 60] {bad_mapq})")
+            if bad:
+                raise RuntimeError("bench_torch.py's align SAM has CIGARs "
+                                   "whose query length is not the read's")
+    # (3) ONT, phase 14's reads, and (4) the 3.1 Gbp world, phase 15's
+    for what, knobs, want in (
+            ("ONT align-free", {"LONG": 1, "READS": ONT_READS, **mbp},
+             ont_cols["align-free"]),
+            ("ONT align", {"LONG": 1, "READS": ONT_READS, "ALIGN": 1, **mbp},
+             ont_cols["stitched align"]),
+            ("3.1 Gbp f=0.25", {"GENOME_MBP": f"{GRCH38_MBP:g}",
+                                "FRAC": GRCH38_FRAC, "READS": GRCH38_READS},
+             grch38_cols)):
+        out, launches, _ = run_bench(what, cache_dir, 900, dev.type, **knobs)
+        check_map_launches(launches, ALIGN_KERNELS if "ALIGN" in knobs
+                           else MAP_KERNELS, f"bench_torch {what}")
+        check_columns(f"{what} against phase {15 if 'FRAC' in knobs else 14}",
+                      out, want)
+
+    # (5) the step, coarse, select and driver profiles
+    t0 = time.perf_counter()
+    index = world.bench_index(cache_dir, genome_mbp, world.bench_config())[0]
+    pipe = BucketMapPipeline(index, device=dev, batch_size=BATCH,
+                             pair_batch=BATCH)
+    batch = world.first_reads(fastq, DRIVER_BATCHES * BATCH)
+    codes, quals, seg_len, _, _ = pipe._all_segments(batch.head(BATCH))
+    packed = pipe.device.pack(codes, quals, seg_len)
+    dm = pipe.device
+    log(f"[profile] the bench world's index and pipeline ready in "
+        f"{time.perf_counter() - t0:.1f} s; {card_name_and_limit()}")
+    trace = os.path.join(cache_dir, "profile_trace")
+    step = profile_step.profile(dm, packed, 3, trace, log)
+    sub = profile_coarse_sub.profile(dm, packed, 3, trace, log)
+    sel = profile_select.profile(dm, packed, 3, trace, log)
+    drv = profile_driver.profile(pipe, batch, DRIVER_BATCHES, cache_dir, log)
+    if not (step["vec_equal"] and step["staged_equal"] and sub["equal"]
+            and sel["equal"] and drv["sam_equal"]):
+        raise RuntimeError("a profile's decomposition differs from what the "
+                           "pipeline computes")
+    if not step["stages"]["traced"]:
+        log("[profile] torch.profiler saw no device event: launches and "
+            "device ms not measured")
+    del pipe, dm, index, batch, packed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (6) the 3.1 Gbp world's start-up, then the step's throughput there
+    pipe, _, _ = profile_grch38_warmup.profile(
+        cache_dir, GRCH38_MBP, GRCH38_FRAC, GRCH38_READS, BATCH, dev, log)
+    fq = world.bench_reads(cache_dir, GRCH38_READS, GRCH38_MBP,
+                           kmer_fraction=GRCH38_FRAC)[0]
+    profile_pipeline.profile(pipe, world.first_reads(fq, GRCH38_READS),
+                             PIPELINE_BATCHES, log)
+    del pipe
 
 
 def main() -> int:
@@ -2059,16 +2253,28 @@ def main() -> int:
     sweep_phase(torch, dev, index, genome, os.path.join(HERE, ".bench_cache"))
 
     # ---- 14. ONT long reads, align-free and stitched align ---------------
-    mode_launches = ont_phase(torch, timer, dev, index, genome,
-                              os.path.join(HERE, ".bench_cache"), launches,
-                              args.genome_mbp)
+    mode_launches, ont_cols = ont_phase(torch, timer, dev, index, genome,
+                                        os.path.join(HERE, ".bench_cache"),
+                                        launches, args.genome_mbp)
+    # phase 16's reads, bench.py's default world, from the genome held here
+    bench_fq = world.bench_reads(os.path.join(HERE, ".bench_cache"),
+                                 BENCH_READS, args.genome_mbp, genome)
+    log(f"[bench] {BENCH_READS} reads of bench.py's default world ready in "
+        f"{bench_fq[2]:.1f} s")
     del genome, index, rows_all, packed
     gc.collect()
     torch.cuda.empty_cache()
 
     # ---- 15. the 3.1 Gbp FracMinHash f=0.25 world ------------------------
-    mode_launches[f"grch38_f{GRCH38_FRAC:g}"] = grch38_phase(
+    grch38_launches, grch38_cols = grch38_phase(
         torch, timer, dev, os.path.join(HERE, ".bench_cache"), launches)
+    mode_launches[f"grch38_f{GRCH38_FRAC:g}"] = grch38_launches
+
+    # ---- 16. bench_torch.py and the profilers ----------------------------
+    bench_phase(torch, dev, os.path.join(HERE, ".bench_cache"),
+                args.genome_mbp, bench_fq[0], ont_cols, grch38_cols)
+    gc.collect()
+    torch.cuda.empty_cache()
     for k in report:
         k["mode_launches"] = {m: n[k["name"]] for m, n in mode_launches.items()}
 

@@ -81,7 +81,8 @@ def test_world_names_and_ont_flags_are_bench_pys(tmp_path):
     assert fastq == str(tmp_path / "reads_g0.2rep2_f0.25m_r16.fastq")
     assert gt == str(tmp_path / "reads_g0.2rep2_f0.25m_r16"
                                 ".position_ground_truth")
-    fastq, gt, _ = world.long_world(cache, genome, 2, genome_mbp=0.2, log=str)
+    fastq, gt, _ = world.bench_reads(cache, 2, 0.2, genome, long=True,
+                                     log=str)
     assert fastq == str(tmp_path / "reads_g0.2rep2m_r2_long.fastq")
     lens = [len(ln) - 1 for i, ln in enumerate(open(fastq)) if i % 4 == 1]
     assert len(lens) == 2 and all(5000 <= n <= 16500 for n in lens)

@@ -399,7 +399,7 @@ import importlib, pkgutil, sys
 import bucketmap_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(bucketmap_tpu_torch.__path__,
                                                 "bucketmap_tpu_torch.")]
-for name in names + ["chip_smoke"]:
+for name in names + ["chip_smoke", "bench_torch", "kernel_ab"]:
     importlib.import_module(name)
 roots = ("jax", "flax", "optax", "bucketmap_tpu", "research")
 bad = sorted(m for m in sys.modules if m.split(".")[0] in roots)
@@ -412,3 +412,33 @@ print(len(names))
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout) >= 33
+
+
+def test_importing_the_profilers_runs_nothing(tmp_path):
+    """Each experiments.profile_* module (and the root scripts) only
+    defines at import: no file written in the working directory, nothing
+    printed, CUDA not initialised, no kernel launched."""
+    code = """
+import importlib, os, pkgutil, sys
+import torch
+import bucketmap_tpu_torch.experiments as ex
+names = [m.name for m in pkgutil.iter_modules(ex.__path__)
+         if m.name.startswith("profile_")]
+for name in names:
+    importlib.import_module("bucketmap_tpu_torch.experiments." + name)
+import bench_torch, kernel_ab
+from bucketmap_tpu_torch import kernels
+assert not torch.cuda.is_initialized()
+assert not any(kernels.LAUNCHES.values())
+assert os.listdir(".") == [], os.listdir(".")
+sys.stderr.write(" ".join(names))
+"""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    res = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout == ""
+    assert res.stderr.split() == sorted(
+        f"profile_{n}" for n in ("coarse_sub", "driver", "grch38_warmup",
+                                 "pipeline", "select", "step"))
