@@ -11,8 +11,9 @@ with a StageClock as the step's stage hook, so that what is timed is the
 step the pipeline runs: unpack_reads, the fused coarse score (sampling,
 row map, the coarse_score kernel), the at-max select, the locator
 sampling (FineLocator.prepare), the lane compaction with its host sync,
-each live vote chunk's window search (fine_window on the tiled path)
-and tally, and the packing of the result; then the device-to-host copy.
+each live vote chunk's search (on the tiled path the fine_search kernel,
+one launch from the chunk's lanes to the tally's proposals) and tally,
+and the packing of the result; then the device-to-host copy.
 Beside the step, the staged coarse branch on the same reads
 (presence_gather, then chunk_scan), which must give the fused branch's
 score. Per stage: calls, kernel launches and their device ms (one run

@@ -29,8 +29,8 @@ SOURCES = ("coarse_score.cu", "fine_window.cu", "tally.cu", "dp_fwd.cu",
            "presence_gather.cu", "chunk_scan.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
-KERNELS = ("coarse_score", "fine_window", "tally", "dp_fwd", "dp_runs",
-           "presence_gather", "chunk_scan")
+KERNELS = ("coarse_score", "fine_search", "fine_window", "tally", "dp_fwd",
+           "dp_runs", "presence_gather", "chunk_scan")
 
 LAUNCHES = {name: 0 for name in KERNELS}
 BUILD_INFO: dict = {}
@@ -130,6 +130,10 @@ def library():
             lib.bm_fine_window.argtypes = [p, i64, p, p, p, p, i64, i32, i32,
                                            p, p]
             lib.bm_fine_window.restype = i32
+            lib.bm_fine_search.argtypes = [p, i64, i64, p, i64, p, p, p, i64,
+                                           p, p, p, i64, i32, i32, i32, i32,
+                                           p, p, p]
+            lib.bm_fine_search.restype = i32
             lib.bm_tally.argtypes = [p, p, i64, i32, i32, i32, i32, i32, p, p,
                                      p, p]
             lib.bm_tally.restype = i32

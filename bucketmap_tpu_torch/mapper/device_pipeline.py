@@ -434,14 +434,21 @@ class DeviceMapper:
         lanes["counts"] = counts
         return lanes
 
-    def chunk_args(self, lanes: dict, ci: int):
-        """FineLocator.vote arguments of vote chunk ci."""
+    def chunk_lanes(self, lanes: dict, ci: int):
+        """FineLocator.search_lanes arguments of vote chunk ci: the chunk's
+        lane slices and the step's samples."""
         ch = self.vote_chunk
         sl = slice(ci * ch, (ci + 1) * ch)
-        rd = lanes["lane_read"][sl]
         return (lanes["vote_bucket"][sl], lanes["lane_rc"][sl],
-                lanes["samp_hash"][rd], lanes["samp_idx"][rd],
-                lanes["lengths"][rd])
+                lanes["lane_read"][sl], lanes["samp_hash"],
+                lanes["samp_idx"], lanes["lengths"])
+
+    def chunk_args(self, lanes: dict, ci: int):
+        """FineLocator.vote arguments of vote chunk ci: each lane's
+        samples gathered."""
+        bucket, rc, rd, samp_hash, samp_idx, lengths = \
+            self.chunk_lanes(lanes, ci)
+        return bucket, rc, samp_hash[rd], samp_idx[rd], lengths[rd]
 
     def _vote_and_pack(self, lanes: dict, total_valid: int,
                        di: int = 0) -> torch.Tensor:
@@ -457,7 +464,7 @@ class DeviceMapper:
         for ci in range(min(P // ch, -(-nv // ch))):
             sl = slice(ci * ch, (ci + 1) * ch)
             with self.stage("search"):
-                targs = self.fine.search(*self.chunk_args(lanes, ci))
+                targs = self.fine.search_lanes(*self.chunk_lanes(lanes, ci))
             with self.stage("tally"):
                 off[sl], votes[sl], acc[sl] = tally(*targs)
         with self.stage("pack"):

@@ -7,7 +7,7 @@ Phases, each reported on its own line:
   1. environment: the card (nvidia-smi name and power limit), torch and
      CUDA versions, whether nvcc and triton are present; exits non-zero
      without a CUDA device;
-  2. build: the seven CUDA kernels of the six sources in
+  2. build: the eight CUDA kernels of the six sources in
      bucketmap_tpu_torch/csrc, one nvcc for sm_90a per source, all
      started together, and the C++ host library from csrc/host with g++;
   3. world: the bench world (bench.py's seeded repeat genome, index and
@@ -16,13 +16,23 @@ Phases, each reported on its own line:
      reads in batches of 16384, writing SAM; checks accuracy against the
      ground truth and that every kernel was launched;
   5. map-stage kernels against their plain PyTorch versions on the main
-     path's own inputs from one batch: exact equality; each kernel's
+     path's own inputs from one batch (fine_search, the tiled vote's
+     search, on the first vote chunk's lanes; fine_window, off the map
+     path since the fused search, on the same chunk's windows; the fused
+     search's proposals those of fine_window and the plain-torch pass
+     around it): exact equality; each kernel's
      device time (a spin kernel keeps the device ahead of the host; the
      L2 flushed before each launch, and warm), its time as one call on
      an idle device, its bound from this run's inputs and its share of
      it; the coarse score also at 32 samples per read-strand (six bit
      planes, the batch's sample rows regrouped), and at the full batch
      (exact against its plain version, and its device time and bound);
+     the first chunk's vote search before the fused kernel (174
+     launches) and after it, one call on an idle device each, in turns;
+     fine_search word for word against fine_search_plain where its
+     narrowing decides: 4096 lanes on the map table's segments longer
+     than 128 slots (its deepest included), and on a made table whose
+     segments need one to three ballot rounds (up to 200,000 slots);
   6. align mode: BucketMapPipeline(..., align=True).map_fastq over the
      same reads, DP sub-batches of 16384 pairs; checks accuracy, CIGAR
      lengths and that the fused DP (dp_runs) and every map-stage kernel
@@ -52,7 +62,8 @@ Phases, each reported on its own line:
      upload, and a step on it equals phase 5's vector; (b) with no fine
      tables (vote path "scan") one batch equals phase 5's vector, ms per
      vote chunk and the device peak, and the map of all reads gives
-     phase 4's SAM byte for byte, tally launched and fine_window not;
+     phase 4's SAM byte for byte, tally launched and neither fine_search
+     nor fine_window;
      (c) on a 100 Mbp bench world (the JAX package builds the 2-D
      packed, prefix and positional tables only on the host, in numpy:
      minutes and ~17 GB of host memory at 1.7 Gbp) one batch through the
@@ -102,7 +113,8 @@ Phases, each reported on its own line:
      and correct within bench.py's long-read tolerance (2% of the mean
      length, +-150 at 7.5 kbp) >= 93, the three map kernels against
      their plain versions on one batch of its segment rows (the coarse
-     score at 30 samples, five bit planes; the tally at 160 proposals);
+     score at 30 samples, five bit planes; fine_search at p = 20; the
+     tally at 160 proposals), the chunk's search before and after;
      (b) the segment-stitched align mode, mapped >= 97, correct within
      +-10 >= 95, every CIGAR consuming its SEQ, MAPQ in [0, 60]; dp_runs
      against dp_runs_plain on the stitcher's first DP sub-batch at the
@@ -118,7 +130,9 @@ Phases, each reported on its own line:
      correct within +-10 >= 95; the map kernels against their plain
      versions on one batch, fine_window on windows past element 2^31 of
      its table (the batch's and windows made from the table's own slots
-     up to its last), coarse_score at the full batch on the ~1,479-word
+     up to its last), fine_search on rows past element 2^31 (the batch's
+     lanes on buckets past it, and lanes made on those buckets up to the
+     last), coarse_score at the full batch on the ~1,479-word
      occupancy table, and the batch's step vector through the tiled
      path word for word the scan path's (the JAX build's route here);
  16. bench_torch.py and the profilers, after phase 15 (its ONT and
@@ -136,12 +150,15 @@ Phases, each reported on its own line:
      profile_coarse_sub and profile_select on the first 16,384 reads of
      (1)'s FASTQ (the decomposition's vector step_packed's word for word,
      the staged branch's score the fused one's, each part's result its
-     method's; the tables of device ms, launches and host ms by stage) and
+     method's; the tables of device ms, launches and host ms by stage, and
+     the vote search stage's on a line of its own) and
      profile_driver over 8 batches (the sequential cycle's SAM map_reads'
      byte for byte); (6) profile_grch38_warmup on phase 15's world (index
      load, init, first and steady batch), then profile_pipeline over 12
      batches of its reads.
-Each phase checks the launches of the kernels its path runs. Any failure
+Each phase checks the launches of the kernels its path runs (on the
+tiled path fine_search once per live vote chunk, fine_window never; on
+the others neither). Any failure
 raises and exits non-zero, and so does finding jax, flax, optax, the JAX
 package or its research tree imported. The last two lines are a JSON
 object per kernel (with its launches in phases 14-15 under
@@ -166,9 +183,9 @@ BATCH = 16384
 COARSE_ROWS = 2048            # read-strands compared in the coarse check
 MIN_MAPPED, MIN_CORRECT = 97.0, 95.0
 DP_PAIRS = 4096               # located pairs in the DP check
-MAP_KERNELS = ("coarse_score", "fine_window", "tally")
+MAP_KERNELS = ("coarse_score", "fine_search", "tally")
 ALIGN_KERNELS = MAP_KERNELS + ("dp_runs",)
-STAGED_KERNELS = ("presence_gather", "chunk_scan", "fine_window", "tally")
+STAGED_KERNELS = ("presence_gather", "chunk_scan", "fine_search", "tally")
 # bounds: the published H100 SXM HBM3 rate, and the int32 rate of its CUDA
 # cores (132 SMs x 64 INT32 lanes x 1.98 GHz boost clock)
 HBM_BYTES_PER_S = 3.35e12
@@ -189,7 +206,11 @@ ONT_MIN_CORRECT_DRIFT = 93.0  # align-free, correct within bench.py's
 GRCH38_MBP, GRCH38_FRAC = 3100.0, 0.25   # phase 15's world
 GRCH38_READS = 8 * BATCH      # its short reads (bench.py: 1,000,000)
 WINDOW_MADE = 4096            # windows made from the 3.1 Gbp table's slots
-PAST_ELEMENT = 2**31          # phase 15 holds fine_window past this element
+DEEP_T = 2048                 # 128-slot rows a bucket of the made deep table
+DEEP_SLOTS = 200_000          # its deepest segment: three ballot rounds
+NARROW_LANES = 4096           # lanes of each narrowing check
+PAST_ELEMENT = 2**31          # phase 15 holds fine_window and fine_search
+                              # past this element
 BENCH_READS = 1000000         # phase 16: bench.py's default read count
 # BENCH_MODES_r05.json's accuracy columns at bench.py's defaults (the JAX
 # build's 1,000,000-read runs on the 1.7 Gbp world): mapped, correct within
@@ -323,6 +344,58 @@ def window_bound(torch, ftf, frow, n_occ: int):
     sub = torch.unique(f[:, None] + torch.arange(3, device=f.device)).numel()
     R = frow.numel()
     return sub * 512 + R * 16 + R * n_occ * 4, R * 384 * 4
+
+
+def search_bound(torch, fine_packed, fine_ptab, vote_bucket, lane_rc,
+                 lane_read, samp_hash, samp_idx, lengths, k: int,
+                 low_bits: int, search_steps: int):
+    """(bytes, int ops) of the fine search on these lanes, each byte
+    counted once: each distinct 128-slot table row that a row's window
+    covers; the narrowing, taken as the plain version's probes (rows
+    whose interval is not yet empty), one 32-byte sector per distinct
+    probed sector that lies outside those window rows; each distinct
+    32-byte fine_ptab sector of the segment bounds; each lane's bucket,
+    strand and read, each distinct read's samples and length; the two
+    (P, p*O) int32 outputs. 4 ops per window slot (mask, compare,
+    range), as window_bound."""
+    from bucketmap_tpu_torch.ops.vote import (MAX_OCC, WINDOW_ROWS, targets,
+                                              window_args)
+
+    rd = lane_read
+    P, p = lane_read.shape[0], samp_hash.shape[1]
+    args = (lane_rc, samp_hash[rd], samp_idx[rd], lengths[rd])
+    (ftf, frow, *_), _ = window_args(fine_packed, fine_ptab, vote_bucket,
+                                     *args, k, low_bits, search_steps)
+    f = frow.to(torch.int64).clamp(0, ftf.shape[0] - WINDOW_ROWS)
+    win_rows = torch.unique(f[:, None] + torch.arange(WINDOW_ROWS,
+                                                      device=f.device))
+    tgt_hash, _ = targets(*args, k)
+    bid = vote_bucket[:, None]
+    prefix = tgt_hash >> low_bits
+    w = fine_ptab.shape[1]
+    cells = bid * w + prefix
+    sectors = torch.unique(torch.cat([cells, cells + 1]) * 4 // 32).numel()
+    low_mask = (1 << low_bits) - 1
+    low = tgt_hash & low_mask
+    lo = fine_ptab[bid, prefix].to(torch.int64)
+    hi = fine_ptab[bid, prefix + 1].to(torch.int64)
+    lpos = fine_packed.shape[1] * 128
+    probed = [win_rows[:0]]
+    for _ in range(max(0, search_steps - 7)):
+        active = lo < hi
+        mid = (lo + hi) // 2
+        mc = mid.clamp(0, lpos - 1)
+        probed.append(torch.unique((bid * lpos + mc)[active] // 8))
+        below = active & ((fine_packed[bid, mc // 128, mc % 128] & low_mask)
+                          < low)
+        lo = torch.where(below, mid + 1, lo)
+        hi = torch.where(active & ~below, mid, hi)
+    probed = torch.unique(torch.cat(probed))       # 8 slots a sector
+    outside = int((~torch.isin(probed // 16, win_rows)).sum())
+    reads = torch.unique(rd).numel()
+    return (win_rows.numel() * 512 + outside * 32 + sectors * 32 + P * 17
+            + reads * (p * 16 + 4) + 2 * P * p * MAX_OCC * 4,
+            frow.numel() * 384 * 4)
 
 
 def tally_bound(torch, prop, valid, p: int, n_occ: int, indel: int):
@@ -537,16 +610,19 @@ def max_abs_err(torch, got, want) -> int:
 
 def map_kernel_cases(torch, pipe, batch):
     """The first BATCH segment rows of `batch` through the step of `pipe`
-    up to each map kernel: (the three kernels' check_kernel cases, the
-    step's inputs {"packed", "rows_all", "table", "wargs"}). The coarse
-    case takes COARSE_ROWS read-strands, the window and tally cases the
-    first vote chunk."""
+    up to each map kernel: (the four kernels' check_kernel cases, the
+    step's inputs {"packed", "rows_all", "table", "wargs", "lanes"}). The
+    coarse case takes COARSE_ROWS read-strands, the window, search and
+    tally cases the first vote chunk; the fused search's proposals must
+    be those of the window kernel and the plain-torch pass around it."""
     from bucketmap_tpu_torch.ops.coarse import coarse_score, coarse_score_plain
     from bucketmap_tpu_torch.ops.encoding import unpack_reads
-    from bucketmap_tpu_torch.ops.vote import (fine_window, fine_window_plain,
+    from bucketmap_tpu_torch.ops.vote import (fine_search, fine_search_plain,
+                                              fine_window, fine_window_plain,
                                               tally, tally_plain)
 
     dm = pipe.device
+    fl = dm.fine
     cfg = dm.cfg
     n_buckets = dm.index.n_buckets
     codes, quals, seg_len, _, _ = pipe._all_segments(batch)
@@ -558,11 +634,20 @@ def map_kernel_cases(torch, pipe, batch):
     rows = rows_all[: COARSE_ROWS * s].contiguous()
     table = dm.coarse.qgram_words
     lanes = dm.compact_lanes(packed)
+    sargs = (fl.fine_packed, fl.fine_ptab, *dm.chunk_lanes(lanes, 0),
+             cfg.query_seed, fl.low_bits, fl.search_steps)
+    targs = fl.search_lanes(*dm.chunk_lanes(lanes, 0))
     vargs = dm.chunk_args(lanes, 0)
-    wargs, tgt_idx = dm.fine.window_args(*vargs)
+    wargs, tgt_idx = fl.window_args(*vargs)
     P, p = vargs[2].shape
-    pk = fine_window(*wargs)
-    targs = dm.fine.tally_args(pk.reshape(P, p, -1), tgt_idx, vargs[1])
+    before = fl.tally_args(fine_window(*wargs).reshape(P, p, -1), tgt_idx,
+                           vargs[1])
+    equal = all(torch.equal(a, b) for a, b in zip(targs[:2], before[:2]))
+    log(f"[kernel] fine_search: the first vote chunk's proposals equal to "
+        f"window_args + fine_window + tally_args's {equal}")
+    if not equal:
+        raise RuntimeError("the fused search's proposals differ from the "
+                           "window kernel's")
     cases = [
         ("coarse_score", "bucketmap_tpu_torch/csrc/coarse_score.cu",
          "bucketmap_tpu/ops/coarse.py:256",
@@ -576,6 +661,13 @@ def map_kernel_cases(torch, pipe, batch):
          lambda: (fine_window(*wargs),), lambda: (fine_window_plain(*wargs),),
          f"{wargs[1].shape[0]} windows of one {P}-lane vote chunk",
          window_bound(torch, wargs[0], wargs[1], wargs[5])),
+        ("fine_search", "bucketmap_tpu_torch/csrc/fine_window.cu",
+         "bucketmap_tpu/ops/vote.py:54",
+         lambda: fine_search(*sargs), lambda: fine_search_plain(*sargs),
+         f"one {P}-lane vote chunk x {p} samples ({P * p} rows, "
+         f"search_steps {fl.search_steps}, "
+         f"{int((targs[1] != 0).sum())} valid proposals)",
+         search_bound(torch, *sargs)),
         ("tally", "bucketmap_tpu_torch/csrc/tally.cu",
          "bucketmap_tpu/ops/vote.py:186",
          lambda: tally(*targs), lambda: tally_plain(*targs),
@@ -584,7 +676,195 @@ def map_kernel_cases(torch, pipe, batch):
          tally_bound(torch, *targs[:5])),
     ]
     return cases, {"packed": packed, "rows_all": rows_all, "table": table,
-                   "wargs": wargs}
+                   "wargs": wargs, "lanes": lanes}
+
+
+def deep_table(torch, dev, low_bits: int, seed: int = 12):
+    """A two-bucket tiled fine table made from `seed`, its segments from
+    empty to DEEP_SLOTS slots: bucket 0's prefixes hold 0-40 slots but
+    for 20 of 129-4,224 (one ballot round of the fine-search kernel) and
+    6 of 4,225-20,000 (two); bucket 1's prefix 2,048 holds DEEP_SLOTS
+    (three: more than 128 * 33**2), the rest 0-10. Low bits lean to 0,
+    so runs of one low pass 128 and 4,224 slots. Returns (fine_packed
+    (2, DEEP_T, 128) int32, fine_ptab (2, 4097) int32, search_steps)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lengths = [rng.integers(0, 41, 4096), rng.integers(0, 11, 4096)]
+    deep = rng.choice(4096, 26, replace=False)
+    lengths[0][deep[:20]] = rng.integers(129, 4225, 20)
+    lengths[0][deep[20:]] = rng.integers(4225, 20001, 6)
+    lengths[1][2048] = DEEP_SLOTS
+    packed = np.full((2, DEEP_T * 128), -1, np.int64)
+    ptab = np.zeros((2, 4097), np.int64)
+    for b, n in enumerate(lengths):
+        prefix = np.repeat(np.arange(4096), n)
+        low = np.floor(rng.random(prefix.size) ** 3 * (1 << low_bits))
+        key = np.sort((prefix << low_bits) | low.astype(np.int64))
+        pos = rng.integers(0, 1 << (31 - low_bits), key.size)
+        packed[b, :key.size] = (pos << low_bits) | (key & ((1 << low_bits)
+                                                           - 1))
+        ptab[b, 1:] = np.cumsum(n)
+    if ptab[:, -1].max() > DEEP_T * 128:
+        raise RuntimeError("the made deep table overflows its buckets")
+    return (torch.from_numpy(packed.astype(np.int32)).reshape(2, DEEP_T, 128)
+            .to(dev), torch.from_numpy(ptab.astype(np.int32)).to(dev),
+            int(max(n.max() for n in lengths)).bit_length())
+
+
+def narrowing_lanes(torch, fine_packed, fine_ptab, low_bits: int, k: int,
+                    p: int, read_len: int, seed: int):
+    """NARROW_LANES lanes of p samples on the segments of fine_ptab longer
+    than 128 slots (fine_search's lane arguments after the tables): the
+    first lane on the deepest, half the lanes on the NARROW_LANES / 8
+    deepest, the rest on any; each sample targets its lane's segment with the
+    low bits of one of its slots at a uniform depth, or (one in four) a
+    uniform low; half the lanes reverse-complement; lane_read a
+    permutation. Returns (the lane arguments, {"rows": P * p, "deepest":
+    the deepest segment's slots, "> 128",
+    "> 4,224", "> 139,392": rows on segments longer than that, "first
+    match past 384": matched rows whose first equal-low slot lies 384 or
+    more slots into its segment})."""
+    from bucketmap_tpu_torch.ops.encoding import revcomp_hash
+    from bucketmap_tpu_torch.ops.vote import lower_bound
+
+    dev = fine_packed.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    P, T = NARROW_LANES, fine_packed.shape[1]
+    seg = (fine_ptab[:, 1:] - fine_ptab[:, :-1]).to(torch.int64)
+    long_ = (seg > 128).nonzero()
+    deepest = seg[long_[:, 0], long_[:, 1]].argsort(descending=True)
+    pick = torch.randint(0, long_.shape[0], (P,), generator=g, device=dev)
+    top = deepest[:max(1, P // 8)]              # half the lanes on these
+    pick[: P // 2] = top[torch.randint(0, top.numel(), (P // 2,),
+                                       generator=g, device=dev)]
+    pick[0] = deepest[0]
+    bid, prefix = long_[pick, 0], long_[pick, 1]
+    lo = fine_ptab[bid, prefix].to(torch.int64)[:, None]
+    n = seg[bid, prefix][:, None]
+    low_mask = (1 << low_bits) - 1
+    slot = lo + (torch.rand((P, p), generator=g, device=dev) * n).long()
+    low = fine_packed[bid[:, None], slot // 128, slot % 128].to(
+        torch.int64) & low_mask
+    anylow = torch.randint(0, low_mask + 1, (P, p), generator=g, device=dev)
+    low = torch.where(torch.rand((P, p), generator=g, device=dev) < 0.25,
+                      anylow, low)
+    tgt = (prefix[:, None] << low_bits) | low
+    rc = torch.rand(P, generator=g, device=dev) < 0.5
+    lane_read = torch.randperm(P, generator=g, device=dev)
+    samp_hash = torch.empty_like(tgt)
+    samp_hash[lane_read] = torch.where(rc[:, None], revcomp_hash(tgt, k), tgt)
+    samp_idx = torch.randint(0, read_len - k + 1, (P, p), generator=g,
+                             device=dev)
+    lengths = torch.full((P,), read_len, dtype=torch.int32, device=dev)
+
+    def probe(mid):
+        mc = mid.clamp(0, T * 128 - 1)
+        return (fine_packed[bid[:, None], mc // 128, mc % 128].to(torch.int64)
+                & low_mask)
+
+    hi = lo + n
+    first, _ = lower_bound(lo.expand(P, p), hi.expand(P, p), low,
+                           int(n.max()).bit_length() + 1, probe)
+    hit = (first < hi) & (probe(first) == low)
+    rows = {"rows": P * p, "deepest": int(n.max())}
+    for m in (128, 4224, 139392):
+        rows[f"> {m:,}"] = int((n > m).sum()) * p
+    rows["first match past 384"] = int((hit & (first - lo >= 384)).sum())
+    return (bid, rc, lane_read, samp_hash, samp_idx, lengths), rows
+
+
+def narrowing_checks(torch, fl, read_len: int) -> None:
+    """fine_search against fine_search_plain, word for word, where the
+    kernel's narrowing decides: on this table's segments longer than
+    128 slots (its deepest included), and on deep_table's (one to three
+    ballot rounds, search_steps from its deepest segment). Each case must
+    hold rows on segments over 128 slots and rows whose first match lies
+    past the window a segment's start would give; the made table's
+    also rows on segments over 4,224 and 139,392 slots."""
+    from bucketmap_tpu_torch.ops.vote import fine_search, fine_search_plain
+
+    k, lb, p = fl.cfg.query_seed, fl.low_bits, fl.cfg.locator_samples
+    made = deep_table(torch, fl.fine_packed.device, lb)
+    for what, (fp, pt, steps), need in (
+            ("the map's table", (fl.fine_packed, fl.fine_ptab,
+                                 fl.search_steps), ("> 128",)),
+            ("a made table", made, ("> 128", "> 4,224", "> 139,392"))):
+        lanes, rows = narrowing_lanes(torch, fp, pt, lb, k, p, read_len,
+                                      seed=5)
+        sargs = (fp, pt, *lanes, k, lb, steps)
+        check_equal(torch, "fine_search",
+                    f"narrowing on {what} (search_steps {steps}), "
+                    f"{NARROW_LANES} lanes x {p} samples: rows {rows}",
+                    lambda: fine_search(*sargs),
+                    lambda: fine_search_plain(*sargs))
+        short = [m for m in need + ("first match past 384",) if not rows[m]]
+        if short:
+            raise RuntimeError(f"the narrowing check on {what} holds no rows "
+                               f"{short}: {rows}")
+
+
+def traced_kernels(torch, dev, runs: dict) -> dict:
+    """{name: (device kernels, their device ms, copies)} of one call of
+    each runs[name]() under torch.profiler, stage by stage
+    (experiments.stages). DeviceTimer could not time the 174-launch
+    search of the step before the fused kernel (the host never got ahead
+    of its spin kernel), so the sum of a path's kernel times stands for
+    its device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bucketmap_tpu_torch.experiments.stages import (StageClock,
+                                                        kernels_by_stage)
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for fn in runs.values():      # a trace can lose its first records
+            fn()
+        clock = StageClock(dev, sync=True)
+        for name, fn in runs.items():
+            with clock(name):
+                fn()
+    by_stage = kernels_by_stage(prof)
+    return {name: tuple(by_stage.get(name, (0, 0.0, 0))) for name in runs}
+
+
+def search_before_after(torch, dm, lanes, what: str) -> None:
+    """The vote search of the first chunk as the step ran it before the
+    fused kernel (chunk_args' gathers, window_args' plain-torch probes,
+    fine_window, tally_args) and as it runs now (fine_search on the
+    chunk's lanes): one call on an idle device each, in turns (the host's
+    time where the host is the slower); then under torch.profiler one
+    call each, its device kernels, copies and the sum of their device
+    times (traced_kernels)."""
+    from bucketmap_tpu_torch.ops.vote import fine_window
+
+    fl = dm.fine
+
+    def before():
+        vargs = dm.chunk_args(lanes, 0)
+        wargs, tgt_idx = fl.window_args(*vargs)
+        P, p = vargs[2].shape
+        return fl.tally_args(fine_window(*wargs).reshape(P, p, -1), tgt_idx,
+                             vargs[1])[:2]
+
+    def after():
+        return fl.search_lanes(*dm.chunk_lanes(lanes, 0))[:2]
+
+    runs = {"before": before, "after": after}
+    calls = {"before": [], "after": []}
+    for name in ("before", "after", "after", "before"):
+        calls[name].append(call_ms(torch, runs[name]))
+    traced = {name: (f"{n} kernels and {copies} copies, {ms:.4f} ms of "
+                     f"kernel time")
+              for name, (n, ms, copies) in
+              traced_kernels(torch, dm.device, runs).items()}
+    log(f"[kernel] the vote search of one {dm.vote_chunk}-lane chunk "
+        f"({what}); before (chunk_args + window_args + fine_window + "
+        f"tally_args): one call on an idle device "
+        f"{', '.join(f'{t:.4f}' for t in calls['before'])} ms, traced "
+        f"{traced['before']}; after (fine_search): one call "
+        f"{', '.join(f'{t:.4f}' for t in calls['after'])} ms, traced "
+        f"{traced['after']}; card {card_name_and_limit()}")
 
 
 def timed_map(torch, dev, pipe, fastq: str, sam: str):
@@ -789,8 +1069,8 @@ def mesh_phase(torch, timer, index, fastq, gt, sam, dev, rows_all, packed,
     if mapped < MIN_MAPPED or correct < MIN_CORRECT:
         raise RuntimeError(f"mesh accuracy below the floor: mapped "
                            f"{mapped:.2f}, correct {correct:.2f}")
-    idle = [k for k in STAGED_KERNELS if launches[k] == 0]
-    if idle or launches["coarse_score"]:
+    check_map_launches(launches, STAGED_KERNELS, "the staged mesh pipeline")
+    if launches["coarse_score"]:
         raise RuntimeError(f"the staged path launched {launches}")
     # the staged kernels on the main path's rows, their launches this
     # pipeline's
@@ -890,7 +1170,8 @@ def vote_paths_phase(torch, index, fastq, gt, sam, dev, packed, vec_single,
     if mapped < MIN_MAPPED or correct < MIN_CORRECT:
         raise RuntimeError(f"scan accuracy below the floor: mapped "
                            f"{mapped:.2f}, correct {correct:.2f}")
-    if launches["tally"] == 0 or launches["fine_window"]:
+    if launches["tally"] == 0 or launches["fine_search"] \
+            or launches["fine_window"]:
         raise RuntimeError(f"the scan path launched {launches}")
     del pipe, dm
     gc.collect()
@@ -937,8 +1218,9 @@ def vote_paths_phase(torch, index, fastq, gt, sam, dev, packed, vec_single,
             f"launches {launches}")
         if not torch.equal(vecs[path], vecs["tiled"]):
             raise RuntimeError(f"the {path} vote path's vector differs")
-        if launches["tally"] == 0 or \
-                bool(launches["fine_window"]) != (path == "tiled"):
+        tiled_ok = launches["fine_search"] == launches["tally"] \
+            if path == "tiled" else launches["fine_search"] == 0
+        if launches["tally"] == 0 or launches["fine_window"] or not tiled_ok:
             raise RuntimeError(f"the {path} path launched {launches}")
         del dm, lanes, p100, one
         torch.cuda.empty_cache()
@@ -1001,9 +1283,15 @@ def report_numbers(out: str):
 
 
 def check_map_launches(launches: dict, kernels_run, what: str) -> None:
+    """Every kernel of kernels_run launched, and the tiled vote's: one
+    fine_search a live vote chunk (as many as tally), fine_window never."""
     idle = [k for k in kernels_run if launches[k] == 0]
     if idle:
         raise RuntimeError(f"{what} never launched: {idle}")
+    if launches["fine_window"] or launches["fine_search"] != launches["tally"]:
+        raise RuntimeError(f"{what}: the tiled vote must launch fine_search "
+                           f"once per live vote chunk and fine_window never: "
+                           f"{launches}")
 
 
 def cli_phase(torch, device: str, index, cache_dir: str, idx_name: str,
@@ -1582,11 +1870,13 @@ def ont_phase(torch, timer, dev, index, genome, cache_dir: str,
     check_map_launches(launches, MAP_KERNELS, "ONT align-free")
     out["ont"] = launches
     batch = world.first_reads(fastq, -(-BATCH // cfg.num_segment_samples))
-    cases, _ = map_kernel_cases(torch, pipe, batch)
+    cases, ins = map_kernel_cases(torch, pipe, batch)
     for case in cases:
         check_kernel(torch, timer, *case, launches[case[0]],
                      main_launches[case[0]])
-    del pipe, cases, batch
+    search_before_after(torch, pipe.device, ins["lanes"],
+                        f"ONT, p = {cfg.locator_samples}")
+    del pipe, cases, ins, batch
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1704,7 +1994,8 @@ def grch38_phase(torch, timer, dev, cache_dir: str,
     from bucketmap_tpu_torch.mapper import device_pipeline
     from bucketmap_tpu_torch.mapper.pipeline import BucketMapPipeline
     from bucketmap_tpu_torch.ops.coarse import coarse_score, coarse_score_plain
-    from bucketmap_tpu_torch.ops.vote import (WINDOW_ROWS, fine_window,
+    from bucketmap_tpu_torch.ops.vote import (WINDOW_ROWS, fine_search,
+                                              fine_search_plain, fine_window,
                                               fine_window_plain)
 
     genome_mbp, n_reads = GRCH38_MBP, GRCH38_READS
@@ -1785,14 +2076,46 @@ def grch38_phase(torch, timer, dev, cache_dir: str,
              torch.cat([hi_rel[past], torch.full_like(
                  mrow, WINDOW_ROWS * 128, dtype=torch.int32)]),
              torch.cat([low[past], mlow.to(torch.int32)]), n_occ, low_bits)
-    cases[1] = (*cases[1][:3], lambda: (fine_window(*wargs),),
-                lambda: (fine_window_plain(*wargs),),
-                f"{past.numel()} of the first vote chunk's {frow.numel()} "
-                f"windows past element {PAST_ELEMENT} (buckets >= "
-                f"{-(-first_row // dm.fine.fine_packed.shape[1])}) and "
-                f"{WINDOW_MADE} made from the table's slots up to its last "
-                f"window (elements up to {ftf.numel()})",
-                window_bound(torch, ftf, wargs[1], n_occ))
+    fl = dm.fine
+    T = fl.fine_packed.shape[1]
+    first_bucket = -(-first_row // T)
+    by_name = {case[0]: i for i, case in enumerate(cases)}
+    cases[by_name["fine_window"]] = (
+        *cases[by_name["fine_window"]][:3], lambda: (fine_window(*wargs),),
+        lambda: (fine_window_plain(*wargs),),
+        f"{past.numel()} of the first vote chunk's {frow.numel()} "
+        f"windows past element {PAST_ELEMENT} (buckets >= {first_bucket}) "
+        f"and {WINDOW_MADE} made from the table's slots up to its last "
+        f"window (elements up to {ftf.numel()})",
+        window_bound(torch, ftf, wargs[1], n_occ))
+    # fine_search on rows past element PAST_ELEMENT: the batch's lanes on
+    # buckets >= first_bucket, and lanes made on those buckets up to the
+    # table's last, each with a read of the batch drawn at random
+    lanes = ins["lanes"]
+    nv = lanes["n_valid"]
+    mine = torch.nonzero(lanes["vote_bucket"][:nv] >= first_bucket
+                         ).flatten()[:WINDOW_MADE]
+    n_fb = fl.fine_packed.shape[0]
+    mb = torch.randint(first_bucket, n_fb, (WINDOW_MADE,), generator=g)
+    mb[-1] = n_fb - 1
+    mr = torch.randint(0, lanes["samp_hash"].shape[0], (WINDOW_MADE,),
+                       generator=g)
+    mrc = torch.rand(WINDOW_MADE, generator=g) < 0.5
+    sargs = (fl.fine_packed, fl.fine_ptab,
+             torch.cat([lanes["vote_bucket"][mine], mb.to(dev)]),
+             torch.cat([lanes["lane_rc"][mine], mrc.to(dev)]),
+             torch.cat([lanes["lane_read"][mine], mr.to(dev)]),
+             lanes["samp_hash"], lanes["samp_idx"], lanes["lengths"],
+             cfg.query_seed, fl.low_bits, fl.search_steps)
+    n_valid_prop = int((fine_search_plain(*sargs)[1] != 0).sum())
+    cases[by_name["fine_search"]] = (
+        *cases[by_name["fine_search"]][:3], lambda: fine_search(*sargs),
+        lambda: fine_search_plain(*sargs),
+        f"{mine.numel()} of the batch's lanes on buckets >= {first_bucket} "
+        f"(rows past element {PAST_ELEMENT}) and {WINDOW_MADE} made on "
+        f"those buckets up to the table's last ({n_fb - 1}), x "
+        f"{cfg.locator_samples} samples ({n_valid_prop} valid proposals)",
+        search_bound(torch, *sargs))
     for case in cases:
         check_kernel(torch, timer, *case, launches[case[0]],
                      main_launches[case[0]])
@@ -1809,7 +2132,7 @@ def grch38_phase(torch, timer, dev, cache_dir: str,
               lambda: coarse_score(table, rows_all, index.n_buckets, s),
               coarse_bound(torch, table, rows_all, s))
     vec = dm.step_packed(packed).cpu()
-    del cases, ins, rows_all, wargs, mrow, slot, mlow
+    del cases, ins, rows_all, wargs, mrow, slot, mlow, lanes, sargs
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -1958,6 +2281,15 @@ def bench_phase(torch, dev, cache_dir: str, genome_mbp: float, fastq: str,
         f"{time.perf_counter() - t0:.1f} s; {card_name_and_limit()}")
     trace = os.path.join(cache_dir, "profile_trace")
     step = profile_step.profile(dm, packed, 3, trace, log)
+    srch = step["stages"]["stages"]["search"]
+    dev_ms = "not measured" if srch["device_ms"] is None \
+        else f"{srch['device_ms']:.3f}"
+    log(f"[profile] the step's vote search ({dm.vote_path} path): "
+        f"{srch['calls']} chunks, launches {srch['launches']}, device ms "
+        f"{dev_ms}, host ms {srch['host_ms']:.3f}, event ms "
+        f"{srch['event_ms']:.3f}; the whole step {step['step']['launches']} "
+        f"launches, wall {step['step']['wall_ms']:.3f} ms; "
+        f"{card_name_and_limit()}")
     sub = profile_coarse_sub.profile(dm, packed, 3, trace, log)
     sel = profile_select.profile(dm, packed, 3, trace, log)
     drv = profile_driver.profile(pipe, batch, DRIVER_BATCHES, cache_dir, log)
@@ -2070,9 +2402,7 @@ def main() -> int:
         raise RuntimeError(f"accuracy below the floor: mapped {mapped:.2f} "
                            f"(>= {MIN_MAPPED}), correct {correct:.2f} "
                            f"(>= {MIN_CORRECT})")
-    idle = [k for k in MAP_KERNELS if launches[k] == 0]
-    if idle:
-        raise RuntimeError(f"main path never launched: {idle}")
+    check_map_launches(launches, MAP_KERNELS, "the main path")
     if launches["presence_gather"] or launches["chunk_scan"]:
         raise RuntimeError(f"the fused path launched the staged kernels: "
                            f"{launches}")
@@ -2083,6 +2413,8 @@ def main() -> int:
     cases, ins = map_kernel_cases(torch, pipe, world.first_reads(fastq, BATCH))
     report = [check_kernel(torch, timer, *case, launches[case[0]],
                            launches[case[0]]) for case in cases]
+    search_before_after(torch, dm, ins["lanes"], "the main path")
+    narrowing_checks(torch, dm.fine, cfg.read_len)
     packed, rows_all, table = ins["packed"], ins["rows_all"], ins["table"]
     s = cfg.mapper_samples
     wide = rows_all[: COARSE_ROWS * WIDE_S].contiguous()
@@ -2142,9 +2474,7 @@ def main() -> int:
     if bad:
         raise RuntimeError(f"{bad} records have a CIGAR whose query length "
                            f"is not the read length")
-    idle = [k for k in ALIGN_KERNELS if al_launches[k] == 0]
-    if idle:
-        raise RuntimeError(f"align path never launched: {idle}")
+    check_map_launches(al_launches, ALIGN_KERNELS, "the align path")
 
     # ---- 7. the DP kernels on the main path's pairs ---------------------
     qc, (qlen, bids, offs, is_rc, width) = sub.first["_sub_batch"]

@@ -25,7 +25,13 @@ read as float32) times the access pattern without the kernel. The tally
 runs on the chunk's flags and with every proposal valid. Last, the
 host's time per call of this tree's wrappers, and one call between two
 events on an idle device, as the runs before the redesign timed the
-kernels. The presence gather of the staged branch runs at the full
+kernels. The vote search of the chunk runs both ways: this tree's
+fused fine_search on the chunk's lanes against the other tree's
+window_args + fine_window + tally_args (its ops/vote.py on its kernel
+library) on the same lanes, the proposals word for word equal, as one
+call on an idle device in turns, and one call of each under
+torch.profiler (its kernels and their device time).
+The presence gather of the staged branch runs at the full
 batch (the same sample rows, L2 flushed). The align stage runs on the
 first 16,384-pair sub-batch of the batch's located pairs (align mode
 over the batch): the whole device-RLE sub-batch (`_align_runs`) as one
@@ -65,6 +71,18 @@ def load_align(tree: str, kernels_mod):
     spec = importlib.util.spec_from_file_location(
         "tree_align", os.path.join(tree, "bucketmap_tpu_torch", "ops",
                                    "align.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.kernels = kernels_mod
+    return mod
+
+
+def load_vote(tree: str, kernels_mod):
+    """A tree's ops/vote.py as module `tree_vote`, its kernels those of
+    kernels_mod (the rest of the package is this tree's)."""
+    spec = importlib.util.spec_from_file_location(
+        "tree_vote", os.path.join(tree, "bucketmap_tpu_torch", "ops",
+                                  "vote.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     mod.kernels = kernels_mod
@@ -116,7 +134,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, HERE)
     from chip_smoke import (CallLog, DeviceTimer, call_ms,
-                            card_name_and_limit, log)
+                            card_name_and_limit, log, traced_kernels)
     from bucketmap_tpu_torch import kernels, world
     from bucketmap_tpu_torch.device import upload_u32
     from bucketmap_tpu_torch.mapper.pipeline import BucketMapPipeline
@@ -124,8 +142,9 @@ def main() -> int:
     from bucketmap_tpu_torch.ops.coarse import (coarse_score_plain,
                                                 presence_gather_plain)
     from bucketmap_tpu_torch.ops.encoding import unpack_reads
-    from bucketmap_tpu_torch.ops.vote import (fine_window, fine_window_plain,
-                                              tally, tally_plain)
+    from bucketmap_tpu_torch.ops.vote import (fine_search_plain, fine_window,
+                                              fine_window_plain, tally,
+                                              tally_plain)
 
     card = card_name_and_limit()
     log(card)
@@ -281,6 +300,39 @@ def main() -> int:
             f"ms per call; one call on an idle device "
             f"{res['one_call_ms']:.4f} ms")
         result[kname] = res
+
+    # the vote search of the chunk: the fused kernel against the other
+    # tree's plain-torch arguments around its window kernel
+    parent_vote = load_vote(parent, parent_kernels)
+    parent_fine = parent_vote.FineLocator(index, dev, dm.tables)
+
+    def parent_search():
+        va = dm.chunk_args(lanes, 0)
+        wa, ti = parent_fine.window_args(*va)
+        return parent_fine.tally_args(
+            parent_vote.fine_window(*wa).reshape(P, p, -1), ti, va[1])[:2]
+
+    searches = {"parent": parent_search,
+                "this": lambda: dm.fine.search_lanes(
+                    *dm.chunk_lanes(lanes, 0))[:2]}
+    want = fine_search_plain(dm.fine.fine_packed, dm.fine.fine_ptab,
+                             *dm.chunk_lanes(lanes, 0), cfg.query_seed,
+                             dm.fine.low_bits, dm.fine.search_steps)
+    for side, run in searches.items():
+        got = run()
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise RuntimeError(f"the vote search ({side}) disagrees with "
+                               f"fine_search_plain")
+    res = {"one_call": in_turns(searches, lambda r: call_ms(torch, r)),
+           "traced": traced_kernels(torch, dev, searches)}
+    result["fine_search"] = res
+    log(f"[fine_search] the chunk's vote search, {P} lanes x {p} samples: "
+        f"one call on an idle device, ms this tree (fine_search) "
+        f"{res['one_call']['this']}, other tree (window_args + fine_window "
+        f"+ tally_args) {res['one_call']['parent']}; one call traced "
+        f"(device kernels, their ms, copies): this tree "
+        f"{res['traced']['this']}, other tree {res['traced']['parent']}")
 
     # the presence gather at the full batch, L2 flushed
     R, nq = rows_all.shape
