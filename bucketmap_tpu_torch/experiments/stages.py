@@ -233,16 +233,51 @@ def load(args):
     return pipe, fastq, pipe.device.pack(codes, quals, seg_len)
 
 
+FLAGS = {
+    "genome-mbp": dict(type=float, default=1700.0),
+    "reads": dict(type=int, default=1000000),
+    "cache-dir": dict(default=".bench_cache"),
+    "trace-dir": dict(default=None),
+    "device": dict(default="cuda",
+                   help="cuda (default; raises without a card) or cpu"),
+}
+
+
+def add_flags(ap, names=tuple(FLAGS)):
+    """Add the profilers' common flags `names` (keys of FLAGS) to ap."""
+    for name in names:
+        ap.add_argument(f"--{name}", **FLAGS[name])
+    return ap
+
+
 def arguments(doc: str, batch: int = 16384):
-    """The profilers' common arguments."""
+    """The step profilers' arguments."""
     ap = argparse.ArgumentParser(description=doc.split("\n")[0])
     ap.add_argument("--batch", type=int, default=batch)
-    ap.add_argument("--genome-mbp", type=float, default=1700.0)
     ap.add_argument("--frac", type=float, default=1.0)
-    ap.add_argument("--reads", type=int, default=1000000)
-    ap.add_argument("--cache-dir", default=".bench_cache")
-    ap.add_argument("--trace-dir", default=None)
     ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--device", default="cuda",
-                    help="cuda (default; raises without a card) or cpu")
-    return ap
+    return add_flags(ap)
+
+
+def wall_ms(fn, device, reps: int, warmup: int = 1) -> list:
+    """Milliseconds of each of `reps` calls of fn after `warmup` calls,
+    each on the host clock from a synchronised device to a synchronised
+    device (the JAX scripts' block_until_ready timing)."""
+    import torch
+
+    dev = torch.device(device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    for _ in range(warmup):
+        fn()
+    out = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out

@@ -26,8 +26,6 @@ rank holds the JAX mesh step's concatenated vector and decodes it alike.
 
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -46,11 +44,7 @@ from bucketmap_tpu_torch.ops.encoding import unpack_reads
 from bucketmap_tpu_torch.ops.vote import (MAX_OCC, FineLocator,
                                           locator_sample_tab, tally)
 from bucketmap_tpu_torch.parallel.distributed import global_read_batch
-
-
-def no_stage(name: str):
-    """DeviceMapper's default stage hook: a context that does nothing."""
-    return contextlib.nullcontext()
+from bucketmap_tpu_torch.utils.debug import no_stage
 
 
 def shard_geometry(index: BucketIndex, Db: int) -> tuple[int, int, int]:
@@ -261,9 +255,10 @@ class DeviceMapper:
     tables' vote path ("tiled", "packed", "prefix", "sorted" or "scan").
 
     `stage(name)` is entered around each sub-stage of a step: "unpack",
-    "coarse", "select", "prepare", "compact", per live vote chunk
-    "search" and "tally", and "pack". It does nothing by default; a
-    profiler swaps in one that times each (experiments/profile_step.py)."""
+    "coarse", "select" (with a mesh, its collectives too), "prepare",
+    "compact", per live vote chunk "search" and "tally", and "pack". It
+    does nothing by default; a profiler swaps in one that times each
+    (experiments/profile_step.py, experiments/profile_mesh.py)."""
 
     def __init__(self, index: BucketIndex, device, batch_size: int = 8192,
                  pairs_per_read: int = 4, vote_chunk: int = 1024,
@@ -408,27 +403,30 @@ class DeviceMapper:
         n = self.coarse.n_buckets
         npf, n_pad = self._npf, self._n_pad_global
         col0 = mesh.bi * npf
-        codes, qual_ok, lengths = unpack_reads(packed, cfg.read_len,
-                                               cfg.query_seed)
-        cm, cc, planes, _, give_up = self.coarse.score(
-            codes, qual_ok, lengths, min(max(n - col0, 0), npf))
-        gmax = cm.amax(dim=2).contiguous()                          # (B, 2)
-        dist.all_reduce(gmax, op=dist.ReduceOp.MAX, group=group)
-        ok = (gmax >= cfg.min_coarse_hits) & ~give_up[:, None]
-        gcnt = torch.where((cm == gmax[:, :, None]) & ok[..., None], cc,
-                           0).sum(dim=2)
-        dist.all_reduce(gcnt, op=dist.ReduceOp.SUM, group=group)
-        over = gcnt > C                                            # clear
-        counts = torch.where(over, 0, gcnt).to(torch.int32)
-        cand_l = self.coarse.extract_at_max(planes, gmax, ok & ~over, n,
-                                            col0)
-        del cm, cc, planes
-        vals = torch.where(cand_l >= 0, n_pad - cand_l, 0).contiguous()
-        parts = [torch.empty_like(vals) for _ in range(mesh.Db)]
-        dist.all_gather(parts, vals, group=group)
-        # distinct values but the zeros: top-k order is lax.top_k's
-        gvals = torch.topk(torch.cat(parts, dim=-1), C, dim=-1).values
-        cand = torch.where(gvals > 0, n_pad - gvals, -1).to(torch.int32)
+        with self.stage("unpack"):
+            codes, qual_ok, lengths = unpack_reads(packed, cfg.read_len,
+                                                   cfg.query_seed)
+        with self.stage("coarse"):
+            cm, cc, planes, _, give_up = self.coarse.score(
+                codes, qual_ok, lengths, min(max(n - col0, 0), npf))
+        with self.stage("select"):
+            gmax = cm.amax(dim=2).contiguous()                      # (B, 2)
+            dist.all_reduce(gmax, op=dist.ReduceOp.MAX, group=group)
+            ok = (gmax >= cfg.min_coarse_hits) & ~give_up[:, None]
+            gcnt = torch.where((cm == gmax[:, :, None]) & ok[..., None], cc,
+                               0).sum(dim=2)
+            dist.all_reduce(gcnt, op=dist.ReduceOp.SUM, group=group)
+            over = gcnt > C                                        # clear
+            counts = torch.where(over, 0, gcnt).to(torch.int32)
+            cand_l = self.coarse.extract_at_max(planes, gmax, ok & ~over, n,
+                                                col0)
+            del cm, cc, planes
+            vals = torch.where(cand_l >= 0, n_pad - cand_l, 0).contiguous()
+            parts = [torch.empty_like(vals) for _ in range(mesh.Db)]
+            dist.all_gather(parts, vals, group=group)
+            # distinct values but the zeros: top-k order is lax.top_k's
+            gvals = torch.topk(torch.cat(parts, dim=-1), C, dim=-1).values
+            cand = torch.where(gvals > 0, n_pad - gvals, -1).to(torch.int32)
         lanes = self._lanes(cand, (cand >= col0) & (cand < col0 + npf), codes,
                             qual_ok, lengths, col0, npf)
         lanes["counts"] = counts

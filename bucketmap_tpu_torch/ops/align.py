@@ -28,6 +28,7 @@ from bucketmap_tpu_torch.index.builder import BucketIndex
 from bucketmap_tpu_torch import kernels
 from bucketmap_tpu_torch.device import (host_tensor, i64_to_i32,
                                         resolve_device, upload_u32)
+from bucketmap_tpu_torch.utils.debug import no_stage
 
 NEG = -(10**8)
 BAND = 128
@@ -311,6 +312,10 @@ class BandedAligner:
         self.run_cap_per_pair = 8
         # DP sub-batches run, pairs aligned, overflow re-runs
         self.counts = {"sub_batches": 0, "pairs": 0, "ops_reruns": 0}
+        # entered around each part of a runs-mode sub-batch: "pad and
+        # upload", "pack", "runs vector", "download", "consume" (a
+        # profiler's StageClock, experiments/profile_align.py)
+        self.stage = no_stage
 
     # ------------------------------------------------------------------
     def _extract_windows(self, bucket_ids, offsets, wmax: int) -> torch.Tensor:
@@ -483,17 +488,24 @@ class BandedAligner:
         if mode == "runs":
             cpp = run_cap_per_pair or self.run_cap_per_pair
             run_cap = -(-cpp * pb // 2) * 2              # even
+        stage = self.stage
         for s in range(0, n, pb):
             e = min(s + pb, n)
-            qc, args = self._sub_batch(qcodes, qlen, bucket_ids, offsets,
-                                       is_rc, width, s, e)
+            with stage("pad and upload"):
+                qc, args = self._sub_batch(qcodes, qlen, bucket_ids, offsets,
+                                           is_rc, width, s, e)
             self.counts["sub_batches"] += 1
             self.counts["pairs"] += e - s
             if mode == "runs":
-                vec = self._align_runs(upload_u32(pack_qcodes(qc), self.device),
-                                       *args, run_cap=run_cap,
-                                       wrap_star=wrap_star)
-                consume(s, e, vec.cpu().numpy())
+                with stage("pack"):
+                    qp = upload_u32(pack_qcodes(qc), self.device)
+                with stage("runs vector"):
+                    vec = self._align_runs(qp, *args, run_cap=run_cap,
+                                           wrap_star=wrap_star)
+                with stage("download"):
+                    vec = vec.cpu().numpy()
+                with stage("consume"):
+                    consume(s, e, vec)
             else:
                 consume(s, e, *self._ops_sub_batch(qc, args, e - s))
 

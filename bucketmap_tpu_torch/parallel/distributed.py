@@ -6,6 +6,9 @@ torch.distributed:
   * ``initialize()`` wraps ``torch.distributed.init_process_group``; rank,
     world size and rendezvous come from the arguments or, as torchrun sets
     them, from RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT.
+  * ``free_port()`` picks a loopback port for a one-host rendezvous;
+    ``one_rank_group()`` is a process group of one rank, torn down on
+    exit.
   * ``global_read_batch()`` cuts a batch that every rank holds down to the
     rank's own rows on the data axis.
   * ``shard_fastq()`` writes one host's round-robin shard of a FASTQ
@@ -14,7 +17,10 @@ torch.distributed:
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import os
+import socket
 
 import numpy as np
 import torch
@@ -55,6 +61,34 @@ def initialize(backend: str | None = None, init_method: str | None = None,
     dist.init_process_group(backend, init_method=init_method or "env://",
                             rank=rank, world_size=world_size)
     return device
+
+
+def free_port() -> int:
+    """A free TCP port on the loopback interface, for a one-host
+    rendezvous (init_method "tcp://127.0.0.1:<port>")."""
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+@contextlib.contextmanager
+def one_rank_group(device, init_method: str | None = None):
+    """A process group of one rank (a (1, 1) mesh on one card or the CPU)
+    on `device`'s backend, nccl on a card and gloo on the CPU, rendezvous
+    at init_method (default a free loopback port); yields this rank's
+    device. On exit the mesh's objects are collected before
+    destroy_process_group: groups kept alive by reference cycles to
+    interpreter exit made gloo ranks abort."""
+    dev = torch.device(device)
+    out = initialize(
+        backend="nccl" if dev.type == "cuda" else "gloo",
+        init_method=init_method or f"tcp://127.0.0.1:{free_port()}",
+        rank=0, world_size=1)
+    try:
+        yield out
+    finally:
+        gc.collect()
+        dist.destroy_process_group()
 
 
 def global_read_batch(mesh, codes: np.ndarray, quals: np.ndarray,

@@ -16,6 +16,9 @@ The port's counterpart of `bucketmap_tpu/utils/debug.py`:
     surfaces at the launch that caused it.
   * ``checked(fn)`` — call fn and return (error, result), as checkify
     does, with out-of-range indexing reported as "out-of-bounds".
+  * ``no_stage(name)`` — the default stage hook of the step, the
+    pipeline and the aligner: a context that does nothing (a profiler
+    puts an experiments.stages.StageClock in its place).
 """
 
 from __future__ import annotations
@@ -25,6 +28,11 @@ import os
 import time
 
 _watermark_bytes = 0
+
+
+def no_stage(name: str):
+    """The default stage hook: a context that does nothing."""
+    return contextlib.nullcontext()
 
 
 def _cuda_in_use() -> bool:

@@ -155,7 +155,16 @@ Phases, each reported on its own line:
      profile_driver over 8 batches (the sequential cycle's SAM map_reads'
      byte for byte); (6) profile_grch38_warmup on phase 15's world (index
      load, init, first and steady batch), then profile_pipeline over 12
-     batches of its reads.
+     batches of its reads; (7) the align, finewin, mesh and coarse
+     profilers on the 1.7 Gbp world: profile_align on one full-width
+     sub-batch (8,192 pairs; the decomposition's runs vector one
+     _align_runs call's), profile_finewin at its defaults (40,960 pairs
+     of (1)'s reads on their ground-truth buckets; the kernel and plain
+     modes identical), profile_mesh "both" over 2 batches (the (1, 1)
+     nccl mesh's decoded lanes and counts the single device's) and
+     profile_coarse at 1,700 Mbp and 8,192 reads (rows A, B, D, E, K and
+     S one checksum), each printing its tables and raising where a check
+     fails or it launched none of its path's kernels (PROFILE_KERNELS).
 Each phase checks the launches of the kernels its path runs (on the
 tiled path fine_search once per live vote chunk, fine_window never; on
 the others neither). Any failure
@@ -173,7 +182,6 @@ import gc
 import importlib.util
 import json
 import os
-import socket
 import subprocess
 import sys
 import time
@@ -219,6 +227,15 @@ R05 = {"align-free": (99.57, 98.48, 98.48, 1.2222),
        "align": (99.45, 98.45, 52.35, 1.5584)}
 DRIVER_BATCHES = 8            # phase 16's profile_driver cycles
 PIPELINE_BATCHES = 12         # phase 16's profile_pipeline batches
+# phase 16 (7): the kernels each profiler must launch
+PROFILE_KERNELS = {"align": ("dp_fwd", "dp_runs"),
+                   "finewin": ("fine_search", "tally"),
+                   "mesh": ("coarse_score", "fine_search", "tally"),
+                   "coarse": ("coarse_score", "presence_gather", "chunk_scan")}
+ALIGN_PAIRS = 8192            # profile_align's pairs: one full sub-batch
+FINEWIN_PAIRS = 40960         # profile_finewin's default pairs
+MESH_BATCHES = 2              # profile_mesh "both" batches
+COARSE_MBP, COARSE_READS = 1700.0, 8192   # profile_coarse's defaults
 
 
 def log(msg: str) -> None:
@@ -595,12 +612,6 @@ def card_name_and_limit() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True
     ).stdout.strip().splitlines()[0]
-
-
-def free_port() -> int:
-    with socket.socket() as sk:
-        sk.bind(("127.0.0.1", 0))
-        return sk.getsockname()[1]
 
 
 def max_abs_err(torch, got, want) -> int:
@@ -2216,7 +2227,7 @@ def bench_phase(torch, dev, cache_dir: str, genome_mbp: float, fastq: str,
     profile_driver over DRIVER_BATCHES batches (the sequential cycle's SAM
     map_reads' byte for byte); (6) profile_grch38_warmup on phase 15's
     world, then profile_pipeline over PIPELINE_BATCHES batches of its
-    reads. The R05 equality holds at 1,700 Mbp only; another genome size
+    reads; (7) four_profilers. The R05 equality holds at 1,700 Mbp only; another genome size
     reports the columns."""
     from bucketmap_tpu_torch import world
     from bucketmap_tpu_torch.experiments import (profile_coarse_sub,
@@ -2312,6 +2323,70 @@ def bench_phase(torch, dev, cache_dir: str, genome_mbp: float, fastq: str,
     profile_pipeline.profile(pipe, world.first_reads(fq, GRCH38_READS),
                              PIPELINE_BATCHES, log)
     del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (7) the align, finewin, mesh and coarse profilers
+    four_profilers(torch, dev, cache_dir, genome_mbp, fastq)
+
+
+def four_profilers(torch, dev, cache_dir: str, genome_mbp: float,
+                   fastq: str) -> dict:
+    """Phase 16 (7): profile_align, profile_finewin, profile_mesh ("both")
+    and profile_coarse on the bench world's index and `fastq` (its first
+    reads, their buckets from the ground truth beside it), each under
+    reset launch counts: raises where a profiler's check fails (each
+    raises itself) or it launched none of a kernel of PROFILE_KERNELS.
+    Returns {profiler: (its result, its launches, its seconds)}."""
+    from bucketmap_tpu_torch import kernels, world
+    from bucketmap_tpu_torch.experiments import (profile_align,
+                                                 profile_coarse,
+                                                 profile_finewin,
+                                                 profile_mesh)
+
+    t0 = time.perf_counter()
+    index = world.bench_index(cache_dir, genome_mbp, world.bench_config())[0]
+    gt = fastq[:-len(".fastq")] + ".bucket_ground_truth"
+    trace = os.path.join(cache_dir, "profile_trace")
+    log(f"[profile] the bench world's index loaded in "
+        f"{time.perf_counter() - t0:.1f} s; {card_name_and_limit()}")
+
+    def finewin():
+        fl = profile_finewin.locator(index, dev)
+        lane_args = profile_finewin.lanes(
+            fl, world.first_reads(fastq, FINEWIN_PAIRS),
+            *profile_finewin.ground_truth(gt, FINEWIN_PAIRS))
+        return profile_finewin.profile(fl, lane_args, 1024, trace, log)
+
+    runs = {
+        "align": lambda: profile_align.profile(
+            index, dev, ALIGN_PAIRS, ALIGN_PAIRS, trace, log),
+        "finewin": finewin,
+        "mesh": lambda: profile_mesh.profile(
+            index, profile_mesh.bench_reads(index, fastq,
+                                            MESH_BATCHES * BATCH),
+            MESH_BATCHES, BATCH, "both", dev, trace, log),
+        "coarse": lambda: profile_coarse.profile(
+            profile_coarse.made_index(COARSE_MBP, COARSE_READS), dev, trace,
+            log),
+    }
+    out = {}
+    for name, fn in runs.items():
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        got = {k: kernels.LAUNCHES[k] for k in PROFILE_KERNELS[name]}
+        log(f"[profile] profile_{name}: {seconds:.1f} s, launches {got}; "
+            f"{card_name_and_limit()}")
+        if not all(got.values()):
+            raise RuntimeError(f"profile_{name} launched none of "
+                               f"{[k for k, n in got.items() if not n]}")
+        out[name] = (res, got, seconds)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -2547,15 +2622,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 8. the mesh step and the staged coarse branch ------------------
-    mdev = distributed.initialize(backend="nccl",
-                                  init_method=f"tcp://127.0.0.1:{free_port()}",
-                                  rank=0, world_size=1)
-    try:
+    with distributed.one_rank_group(dev) as mdev:
         report += mesh_phase(torch, timer, index, fastq, gt, sam, mdev,
                              rows_all, packed, vec_single, launches)
-    finally:
-        gc.collect()          # the mesh's groups go before the process group
-        torch.distributed.destroy_process_group()
 
     # ---- 9. vote paths and device builds --------------------------------
     vote_paths_phase(torch, index, fastq, gt, sam, dev, packed, vec_single,

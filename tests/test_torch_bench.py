@@ -5,29 +5,43 @@ for byte the JAX BucketMapPipeline's on the same cached index and FASTQ,
 its JSON line carrying every key bench.py prints, its percentages
 bench.py's score_sam on the JAX SAM; bench_torch's knobs bench.py's; a
 cache hit putting the run's query flags back; each profiler's
-decomposition equal to what the pipeline computes; and every entry
-point refusing to run without a card unless the CPU is asked for. The
-JAX package's C++ host library is never loaded here (its numpy paths
+decomposition equal to what the pipeline computes; the align, finewin,
+mesh and coarse profilers' results equal the JAX package's on the same
+inputs (the coarse rows' checksums the JAX script's own); and every
+entry point refusing to run without a card unless the CPU is asked for.
+The JAX package's C++ host library is never loaded here (its numpy paths
 give the same bytes)."""
 
+import contextlib
 import importlib
+import io
 import os
+import runpy
 import subprocess
 import sys
 
+import jax
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
 from bucketmap_tpu.index import builder as jax_builder
 from bucketmap_tpu.io import native as jax_native
 from bucketmap_tpu.mapper.pipeline import BucketMapPipeline as JaxPipeline
+from bucketmap_tpu.ops import align as jax_align
+from bucketmap_tpu.ops import encoding as jax_enc
+from bucketmap_tpu.ops.coarse import _chunk_scan_jnp
+from bucketmap_tpu.ops.vote import FineLocator as JaxFine
 from bucketmap_tpu_torch import world
-from bucketmap_tpu_torch.experiments import (profile_coarse_sub,
-                                             profile_driver,
+from bucketmap_tpu_torch.experiments import (profile_align, profile_coarse,
+                                             profile_coarse_sub,
+                                             profile_driver, profile_finewin,
                                              profile_grch38_warmup,
-                                             profile_pipeline, profile_select,
-                                             profile_step)
+                                             profile_mesh, profile_pipeline,
+                                             profile_select, profile_step)
 from bucketmap_tpu_torch.mapper.pipeline import BucketMapPipeline
+from bucketmap_tpu_torch.ops.align import BandedAligner, pack_qcodes
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -41,7 +55,8 @@ BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "pct_mapped",
               "locations_per_read", "warmup_seconds", "peak_host_rss_kb",
               "device_hbm_peak_bytes", "device_hbm_peak_source", "io_native"}
 PROFILERS = (profile_step, profile_coarse_sub, profile_select, profile_driver,
-             profile_pipeline, profile_grch38_warmup)
+             profile_pipeline, profile_grch38_warmup, profile_align,
+             profile_finewin, profile_mesh, profile_coarse)
 
 
 def env(cache, **knobs) -> dict:
@@ -54,10 +69,11 @@ def env(cache, **knobs) -> dict:
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """cache -> {align: (bench_torch's JSON object, its SAM, the JAX SAM)},
-    both modes mapped by bench_torch on the CPU and by the JAX pipeline on
-    the index and reads bench_torch cached (the JAX index given its host
-    fine tables: the JAX device build compiles for ~30 s on the CPU)."""
+    """cache -> {align: (bench_torch's JSON object, its SAM, the JAX SAM),
+    "jax_step": the align-free JAX pipeline's DeviceMapper}, both modes
+    mapped by bench_torch on the CPU and by the JAX pipeline on the index
+    and reads bench_torch cached (the JAX index given its host fine
+    tables: the JAX device build compiles for ~30 s on the CPU)."""
     cache = tmp_path_factory.mktemp("torch_bench")
     tag = world.reads_name(MBP, READS)[len("reads_"):]
     out = {}
@@ -75,10 +91,13 @@ def runs(tmp_path_factory):
                 jax_builder.build_fine_index(index)
             sam = cache / f"out_{tag}{'_al' if align else ''}.sam"
             jax_sam = cache / f"jax_{int(align)}.sam"
-            JaxPipeline(index, align=align, batch_size=BATCH,
-                        pair_batch=BATCH).map_fastq(
-                str(cache / f"reads_{tag}.fastq"), str(jax_sam))
+            jax_pipe = JaxPipeline(index, align=align, batch_size=BATCH,
+                                   pair_batch=BATCH)
+            jax_pipe.map_fastq(str(cache / f"reads_{tag}.fastq"),
+                               str(jax_sam))
             out[align] = res, sam, jax_sam
+            if not align:
+                out["jax_step"] = jax_pipe.device
     return cache, out
 
 
@@ -241,6 +260,174 @@ def test_profile_grch38_warmup_split(runs):
                            "steady batch"]
     assert stats.num_reads == reads.num_reads == BATCH
     assert p.device.vote_path == "tiled"
+
+
+def _jax_index(cache):
+    return jax_builder.load_index(str(cache), world.index_name(MBP))
+
+
+def test_profile_align_pairs_and_decomposition_match_jax(runs, pipe):
+    """pairs() draws the JAX script's pairs (its per-pair decode loop,
+    experiments/profile_align.py:32-53, repeated here); the
+    decomposition's runs vector and DP-only scores equal the JAX
+    aligner's _align_runs and _align_core on them."""
+    cache, _ = runs
+    index = pipe[0].index
+    P = 64
+    qcodes, qlen, bids, offs, is_rc = profile_align.pairs(index, P)
+    rng = np.random.default_rng(3)
+    blen = np.asarray(index.bucket_lengths)
+    want_bids = rng.integers(0, index.n_buckets, P).astype(np.int32)
+    want_offs = (rng.random(P) * (blen[want_bids] - 400)).astype(np.int32)
+    bp = np.asarray(index.buckets_packed)
+    want = np.zeros((P, 304), np.uint8)
+    for i in range(P):
+        w0 = want_offs[i] // 16
+        words = bp[want_bids[i], w0: w0 + 20]
+        bases = ((words[:, None] >> (2 * np.arange(16, dtype=np.uint32))) & 3
+                 ).reshape(-1).astype(np.uint8)
+        st = want_offs[i] - w0 * 16
+        want[i, :300] = bases[st: st + 300]
+    sub = rng.random((P, 304)) < 0.002
+    want = np.where(sub, (want + 1 + (rng.random((P, 304)) * 3)
+                          .astype(np.uint8)) % 4, want).astype(np.uint8)
+    np.testing.assert_array_equal(qcodes, want)
+    np.testing.assert_array_equal(bids, want_bids)
+    np.testing.assert_array_equal(offs, want_offs)
+    assert sub.any() and (qlen == 300).all() and not is_rc.any()
+
+    al = BandedAligner(index, "cpu", pair_batch=P // 2)
+    from bucketmap_tpu_torch.experiments.stages import StageClock
+    al.stage = clock = StageClock("cpu")
+    al.align_batch_runs_stream(qcodes, qlen, bids, offs, is_rc,
+                               lambda *a: None)
+    assert clock.order == ["pad and upload", "pack", "runs vector",
+                           "download", "consume"]
+    assert clock.calls["consume"] == 2
+    out = profile_align.decompose(al, qcodes, qlen, bids, offs, is_rc)
+    assert out["equal"]
+    ref = jax_align.BandedAligner(_jax_index(cache), pair_batch=P)
+    width = al._width(qlen, bids, offs)
+    args = tuple(jnp.asarray(a) for a in (qlen, bids, offs, is_rc, width))
+    runs_vec = ref._align_runs(ref.buckets_tiled, jnp.asarray(
+        pack_qcodes(qcodes)), *args, run_cap=-(-8 * P // 2) * 2)
+    np.testing.assert_array_equal(out["runs"].numpy(), np.asarray(runs_vec))
+    score = jax.jit(lambda *a: ref._align_core(*a)[0])(
+        ref.buckets_tiled, jnp.asarray(qcodes), *args)
+    np.testing.assert_array_equal(out["dp_score"].numpy(), np.asarray(score))
+
+
+def test_profile_finewin_modes_match_jax_vote(runs, pipe):
+    """Both modes' offset, votes and accept on the bench reads' first
+    pairs and ground-truth buckets equal the JAX FineLocator's vote on
+    the same tiled table (its jnp window backend)."""
+    cache, _ = runs
+    index = pipe[0].index
+    cfg = index.config
+    n, chunk = 1024, 256
+    tag = world.reads_name(MBP, READS)
+    bucket, rc = profile_finewin.ground_truth(
+        str(cache / f"{tag}.bucket_ground_truth"), n)
+    batch = world.first_reads(str(cache / f"{tag}.fastq"), n)
+    fl = profile_finewin.locator(index, "cpu")
+    lane_args = profile_finewin.lanes(fl, batch, bucket, rc)
+    out = profile_finewin.decompose(fl, lane_args, chunk)
+    assert out["equal"] and rc.any() and (~rc).any()
+
+    jfl = JaxFine(_jax_index(cache), pair_batch=chunk)
+    assert jfl._finewin_mode == "jnp"
+    jfl.fine_packed = jnp.asarray(fl.fine_packed.numpy().view(np.uint32))
+    jfl.fine_ptab = jnp.asarray(fl.fine_ptab.numpy())
+    jfl.fine_low = jfl.fine_pos = None
+    jfl.search_steps, jfl.low_bits = fl.search_steps, fl.low_bits
+    lengths = np.minimum(batch.lengths, cfg.read_len).astype(np.int32)
+    sh, si = jfl.prepare(batch.codes, batch.quals, lengths)
+    np.testing.assert_array_equal(lane_args[2].numpy(), sh.astype(np.int64))
+    want = jfl.vote(bucket, rc, sh, si, lengths)
+    assert want[2].sum() > 0.9 * n
+    for mode in profile_finewin.MODES:
+        for got, w, what in zip(out[mode], want, ("offset", "votes",
+                                                  "accept")):
+            np.testing.assert_array_equal(got.numpy().astype(np.int64),
+                                          w.astype(np.int64),
+                                          err_msg=f"{mode} {what}")
+
+
+def test_profile_mesh_one_rank_mesh_decodes_as_single_and_jax(
+        runs, pipe, tmp_path, monkeypatch):
+    """On a gloo group of one rank, the (1, 1) mesh's decoded accepted
+    lanes and counts equal the single device's and the JAX
+    DeviceMapper.step's, batch by batch; both steps enter the same
+    stages."""
+    cache, out = runs
+    index = pipe[0].index
+    nb = 2
+    reads = profile_mesh.bench_reads(
+        index, str(cache / f"{world.reads_name(MBP, READS)}.fastq"),
+        nb * BATCH)
+    got = profile_mesh.decompose(index, reads, nb, BATCH, "cpu", "both",
+                                 init_method=f"file://{tmp_path}/store")
+    assert got["equal"] and set(got) == {"single", "mesh 1x1", "equal"}
+    assert not torch.distributed.is_initialized()
+    jdm = out["jax_step"]
+    monkeypatch.setattr(jax_native, "_tried", True)
+    monkeypatch.setattr(jax_native, "_lib", None)
+    for i in range(nb):
+        want = jdm.decode_out(np.asarray(jdm.step(
+            *(a[i * BATCH:(i + 1) * BATCH] for a in reads))))
+        mine = got["mesh 1x1"]["decoded"][i]
+        np.testing.assert_array_equal(profile_mesh.accepted_rows(mine),
+                                      profile_mesh.accepted_rows(want))
+        np.testing.assert_array_equal(mine["counts"], want["counts"])
+    assert got["single"]["accepted"] > 0.9 * nb * BATCH
+
+    from bucketmap_tpu_torch.experiments.stages import StageClock
+
+    def stages(label, dm, _):
+        dm.stage = clock = StageClock("cpu")
+        dm.step(*(a[:BATCH] for a in reads))
+        return clock.order
+
+    order = profile_mesh.over_mappers(index, "cpu", "both", BATCH, stages,
+                                      init_method=f"file://{tmp_path}/s2")
+    assert order["mesh 1x1"] == order["single"] == [
+        "unpack", "coarse", "select", "prepare", "compact", "search",
+        "tally", "pack"]
+
+
+def test_profile_coarse_rows_match_jax():
+    """At 2 Mbp and 16 reads: the made index is the JAX script's draw, the
+    counting rows share one checksum, row A equals the JAX package's
+    count (_chunk_scan_jnp over the ANDed rows) read-strand by
+    read-strand, and every row's checksum is the one the JAX script
+    prints."""
+    made = profile_coarse.made_index(2.0, 16)
+    f = profile_coarse.Formulations(made, "cpu")
+    out = profile_coarse.decompose(f)
+    assert out["equal"]
+    cfg = made["cfg"]
+    s, k, q = cfg.mapper_samples, cfg.query_seed, cfg.index_seed
+    g, w = k - q + 1, made["w"]
+    kmers = jax_enc.kmer_hashes(made["codes"], k)
+    samp = kmers[:, ::max(1, kmers.shape[1] // s)][:, :s]
+    both = np.stack([samp, jax_enc.revcomp_hash(samp, k)], axis=1)
+    grams = (both[..., None].astype(np.int64) >> (2 * np.arange(g))) \
+        & (4**q - 1)
+    rows = made["kmer_to_row"][grams]                      # (B, 2, s, g)
+    np.testing.assert_array_equal(f.rows().numpy(), rows.reshape(-1, g))
+    presence = np.bitwise_and.reduce(made["qgram_words"][rows], axis=3)
+    cm, _, _ = _chunk_scan_jnp(jnp.asarray(presence), jnp.int32(32 * w))
+    np.testing.assert_array_equal(out["A"].numpy(),
+                                  np.asarray(cm).max(axis=2))
+    printed = io.StringIO()
+    with pytest.MonkeyPatch.context() as mp, \
+            contextlib.redirect_stdout(printed):
+        mp.setattr(sys, "argv", ["profile_coarse.py", "2", "16"])
+        runpy.run_path(os.path.join(REPO, "experiments", "profile_coarse.py"))
+    want = {ln[0]: int(ln.rsplit("checksum ", 1)[1].rstrip(")"))
+            for ln in printed.getvalue().splitlines() if "checksum" in ln}
+    assert set(want) == set("ABCDEFG")
+    assert want == {c: out["checksums"][c] for c in want}
 
 
 @pytest.mark.parametrize("entry", ["bench_torch"] +

@@ -440,5 +440,6 @@ sys.stderr.write(" ".join(names))
     assert res.returncode == 0, res.stderr
     assert res.stdout == ""
     assert res.stderr.split() == sorted(
-        f"profile_{n}" for n in ("coarse_sub", "driver", "grch38_warmup",
+        f"profile_{n}" for n in ("align", "coarse", "coarse_sub", "driver",
+                                 "finewin", "grch38_warmup", "mesh",
                                  "pipeline", "select", "step"))
