@@ -189,8 +189,8 @@ def run(s: dict, device="cuda") -> dict:
     launches = dict(kernels.LAUNCHES)
     rps = stats.num_reads / dt
     log(f"[bench] mapped {stats.num_reads} reads in {dt:.1f}s: "
-        f"{rps:.0f} reads/s  (coarse {stats.coarse_seconds:.1f}s, "
-        f"fine {stats.fine_seconds:.1f}s, out {stats.output_seconds:.1f}s, "
+        f"{rps:.0f} reads/s  (segment {stats.segment_seconds:.1f}s, "
+        f"cycles {stats.cycle_seconds:.1f}s, out {stats.output_seconds:.1f}s, "
         f"pairs {stats.candidate_pairs}, locations {stats.mapped_locations})")
     log(f"[bench] kernel launches in the timed map: {json.dumps(launches)}")
     # before scoring, whose string lists would otherwise set the peak RSS

@@ -9,9 +9,10 @@ experiments/profile_driver.py.
 On the first --batches x --batch reads of the bench world (bench_torch.py's
 cache), after a warm-up batch:
   A. sequential: the pipeline's own locate_chunks with a StageClock as its
-     stage hook, each cycle's records emitted on this thread: pack and
-     dispatch (the step's launches, and its host sync at compaction),
-     device wait, device-to-host copy, decode, host extract, SAM emit;
+     stage hook, each cycle's records emitted on this thread: segmenting,
+     pack and dispatch (the step's launches, and its host sync at
+     compaction), device wait, device-to-host copy, decode, host extract,
+     SAM emit, and within the emit the merge and the write;
   B. streamed: map_reads over the same reads, the SAM writer on its own
      thread, as map_fastq maps each chunk.
 Phase A's SAM must equal phase B's byte for byte.
@@ -26,8 +27,10 @@ import time
 
 from bucketmap_tpu_torch.mapper.device_pipeline import no_stage
 
-STAGES = ("dispatch", "download wait", "download", "decode", "extract",
-          "emit")
+STAGES = ("segment", "dispatch", "download wait", "download", "decode",
+          "extract", "emit", "merge", "sam_write")
+# stages entered inside "emit" (BucketMapPipeline._emit_locations)
+IN_EMIT = ("merge", "sam_write")
 
 
 def cycle(pipe, batch, sam_path, stage=no_stage):
@@ -76,8 +79,9 @@ def profile(pipe, batch, n_batches: int, out_dir: str, log=print) -> dict:
     cycles = clock.calls["dispatch"]
     rows = [(name, clock.calls[name], clock.host[name],
              clock.host[name] / max(1, cycles) * 1e3) for name in STAGES]
-    rest = seq_s - sum(clock.host[name] for name in STAGES)
-    rows.append(("(the rest: segmenting, padding, bookkeeping)", "", rest,
+    rest = seq_s - sum(clock.host[name] for name in STAGES
+                       if name not in IN_EMIT)
+    rows.append(("(the rest: padding, bookkeeping)", "", rest,
                  rest / max(1, cycles) * 1e3))
     vec_bytes = 4 * (8 + B // pipe.device.Dd + 2 * pipe.device.out_cap)
     log(f"== sequential decomposition ({n} reads, {cycles} dispatch cycles "

@@ -16,6 +16,7 @@ import os
 import numpy as np
 
 from bucketmap_tpu_torch.ops.host_encoding import _ASCII_TO_CODE
+from bucketmap_tpu_torch.utils.debug import no_stage
 
 
 @dataclasses.dataclass
@@ -152,7 +153,8 @@ def iter_fastq_batches(path: str | os.PathLike,
                        reads_per_batch: int = 131072,
                        max_len: int | None = None,
                        use_native: bool = True,
-                       bytes_per_batch: int = 128 << 20):
+                       bytes_per_batch: int = 128 << 20,
+                       stage=no_stage):
     """Stream a FASTQ as ReadBatch chunks of `reads_per_batch` reads
     (the last one smaller), holding ~one chunk of file bytes at a time.
 
@@ -171,6 +173,9 @@ def iter_fastq_batches(path: str | os.PathLike,
     x 7.5 kb file as one "chunk" would both blow host RSS (4 dense
     (n, max_len) matrices) and serialize its whole parse ahead of
     mapping.
+
+    `stage(name)` is entered as "parse" around each chunk's parse_fastq
+    (the pipeline's stage hook; nothing by default).
     """
     target_nl = 4 * reads_per_batch
     pending: list[bytes] = []
@@ -192,8 +197,10 @@ def iter_fastq_batches(path: str | os.PathLike,
                     np.frombuffer(data, dtype=np.uint8) == ord("\n"))
                 k = min(reads_per_batch, len(nl) // 4)
                 cut = int(nl[4 * k - 1]) + 1
-                yield parse_fastq(data[:cut], max_len=max_len,
-                                  use_native=use_native)
+                with stage("parse"):
+                    batch = parse_fastq(data[:cut], max_len=max_len,
+                                        use_native=use_native)
+                yield batch
                 tail = data[cut:]
                 pending = [tail] if tail else []
                 pending_nl = len(nl) - 4 * k
@@ -201,4 +208,7 @@ def iter_fastq_batches(path: str | os.PathLike,
     if pending:
         data = b"".join(pending)
         if data.strip():
-            yield parse_fastq(data, max_len=max_len, use_native=use_native)
+            with stage("parse"):
+                batch = parse_fastq(data, max_len=max_len,
+                                    use_native=use_native)
+            yield batch

@@ -106,19 +106,37 @@ class MapStats:
     reads_with_candidates: int = 0
     candidate_pairs: int = 0
     mapped_locations: int = 0
-    coarse_seconds: float = 0.0
-    fine_seconds: float = 0.0
+    # host seconds of segmenting the batches (the "segment" stage)
+    segment_seconds: float = 0.0
+    # host seconds of the dispatch cycles: step, download, decode, extract
+    cycle_seconds: float = 0.0
+    # the main thread's CPU seconds inside the "dispatch" stage (a CUDA
+    # call that spins while it waits for the device counts as CPU); the
+    # rest of that stage's wall time is spent off the CPU, waiting for the
+    # interpreter lock or blocked in a CUDA call
+    dispatch_cpu_seconds: float = 0.0
+    # the SAM writer's seconds: merge, format and write
     output_seconds: float = 0.0
 
 
 class BucketMapPipeline:
     """fine_build and fine_max_gb pick the step's fine tables
     (mapper/device_pipeline.py:build_tables). `stage(name)` is entered
-    around each part of a dispatch cycle in locate_chunks: "dispatch"
-    (pack, upload and the step), "download" (the device-to-host copy,
-    which waits for the step), "decode" and "extract" (the split retry of
-    an overflowing batch, with its own dispatches, included); it does
-    nothing by default (experiments/profile_driver.py times each)."""
+    once per batch or dispatch chunk, never per read, in each of the
+    three host threads; it does nothing by default
+    (experiments/profile_driver.py and the benchmark's traced run time
+    each). On the thread that calls map_fastq: "wait_reads" (the wait
+    for the FASTQ reader's next ReadBatch, or for the stream's end),
+    "segment" (a batch's segments, their sort and the dispatch bounds),
+    then per dispatch cycle "dispatch" (pack, upload and the step),
+    "download" (the device-to-host copy, which waits for the step),
+    "decode", "extract" (the split retry of an overflowing batch, with
+    its own dispatches, included) and "handoff" (the location chunk put
+    on the SAM writer's queue), and once a batch "drain" (the wait for
+    the SAM writer to finish it). On the FASTQ reader thread "parse" (a
+    chunk's parse_fastq); on the SAM writer thread "merge" (the
+    align-free merge into sorted record arrays) and "sam_write" (writing
+    the formatted records)."""
 
     def __init__(self, index: BucketIndex, *, device, align: bool = False,
                  batch_size: int = 512, pair_batch: int = 256,
@@ -206,32 +224,34 @@ class BucketMapPipeline:
         cfg = self.cfg
         n = batch.num_reads
         t0 = time.perf_counter()
-        codes, quals, seg_len, seg_read, seg_off = self._all_segments(batch)
-        if not np.all(seg_read[:-1] <= seg_read[1:]):
-            order = np.argsort(seg_read, kind="stable")
-            codes, quals = codes[order], quals[order]
-            seg_len, seg_read, seg_off = (seg_len[order], seg_read[order],
-                                          seg_off[order])
-        S = len(seg_read)
-        bs = self.batch_size
-        assert bs >= cfg.num_segment_samples
-        bounds = []
-        s = 0
-        while s < S:
-            e = min(s + bs, S)
-            if e < S and seg_read[e] == seg_read[e - 1]:
-                e_adj = int(np.searchsorted(seg_read, seg_read[e], "left"))
-                if e_adj > s:
-                    e = e_adj
-            bounds.append((s, e))
-            s = e
-        stats.coarse_seconds += time.perf_counter() - t0
+        with self.stage("segment"):
+            codes, quals, seg_len, seg_read, seg_off = self._all_segments(
+                batch)
+            if not np.all(seg_read[:-1] <= seg_read[1:]):
+                order = np.argsort(seg_read, kind="stable")
+                codes, quals = codes[order], quals[order]
+                seg_len, seg_read, seg_off = (seg_len[order], seg_read[order],
+                                              seg_off[order])
+            S = len(seg_read)
+            bs = self.batch_size
+            assert bs >= cfg.num_segment_samples
+            bounds = []
+            s = 0
+            while s < S:
+                e = min(s + bs, S)
+                if e < S and seg_read[e] == seg_read[e - 1]:
+                    e_adj = int(np.searchsorted(seg_read, seg_read[e], "left"))
+                    if e_adj > s:
+                        e = e_adj
+                bounds.append((s, e))
+                s = e
+        stats.segment_seconds += time.perf_counter() - t0
 
         reads_with_cand = np.zeros(n, dtype=bool)
         for s, e in bounds:
             t0 = time.perf_counter()
-            host = self._run(codes, quals, seg_len, s, e)
-            stats.fine_seconds += time.perf_counter() - t0
+            host = self._run(stats, codes, quals, seg_len, s, e)
+            stats.cycle_seconds += time.perf_counter() - t0
             t0 = time.perf_counter()
             with self.stage("extract"):
                 stats.candidate_pairs += int(host["total_valid"])
@@ -241,8 +261,9 @@ class BucketMapPipeline:
                 if self._overflow(host):
                     # lane/output budget overflow (repetitive genomes): redo
                     # the batch split in half; the per-read budget doubles
-                    chunks = self._locate_split(batch, seg_read, seg_off,
-                                                seg_len, codes, quals, s, e)
+                    chunks = self._locate_split(stats, batch, seg_read,
+                                                seg_off, seg_len, codes,
+                                                quals, s, e)
                 else:
                     chunks = [self._extract_chunk(host, s, e, batch, seg_read,
                                                   seg_off, seg_len)]
@@ -253,7 +274,7 @@ class BucketMapPipeline:
                 orig = np.concatenate([c[4] for c in chunks])
                 so = np.concatenate([c[5] for c in chunks]).astype(np.int64)
                 order = np.lexsort((~orig, bk, r))
-            stats.fine_seconds += time.perf_counter() - t0
+            stats.cycle_seconds += time.perf_counter() - t0
             yield (r[order], bk[order], off[order], votes[order],
                    orig[order], so[order])
         stats.reads_with_candidates += int(reads_with_cand.sum())
@@ -288,7 +309,7 @@ class BucketMapPipeline:
         return (int(host["local_valid"].max()) > self.device.lane_budget
                 or int(host["n_accept"].max()) > self.device.out_cap)
 
-    def _run(self, codes, quals, seg_len, s, e) -> dict:
+    def _run(self, stats, codes, quals, seg_len, s, e) -> dict:
         """Pad segment rows [s, e) to the batch size, run the step and
         decode its result on the host."""
         bs = self.batch_size
@@ -299,7 +320,9 @@ class BucketMapPipeline:
             q = np.pad(q, ((0, pad), (0, 0)))
             sl = np.pad(sl, (0, pad))
         with self.stage("dispatch"):
+            cpu0 = time.thread_time_ns()
             vec = self.device.step(c, q, sl)
+            stats.dispatch_cpu_seconds += (time.thread_time_ns() - cpu0) / 1e9
         with self.stage("download"):
             vec = vec.cpu().numpy()
         with self.stage("decode"):
@@ -320,8 +343,8 @@ class BucketMapPipeline:
         return (r, host["lane_bucket"][keep].astype(np.int64),
                 read_off.astype(np.int64), host["votes"][keep], ~rc, so)
 
-    def _locate_split(self, batch, seg_read, seg_off, seg_len, codes, quals,
-                      s, e):
+    def _locate_split(self, stats, batch, seg_read, seg_off, seg_len, codes,
+                      quals, s, e):
         """Overflow fallback: re-run [s, e) as two halves (a single row can
         never overflow: lane_budget >= 2 * max_candidate_buckets)."""
         mid = (s + e) // 2
@@ -330,10 +353,11 @@ class BucketMapPipeline:
         for a, b in parts:
             if a == b:
                 continue
-            host = self._run(codes, quals, seg_len, a, b)
+            host = self._run(stats, codes, quals, seg_len, a, b)
             if self._overflow(host) and b - a > 1:
-                chunks.extend(self._locate_split(batch, seg_read, seg_off,
-                                                 seg_len, codes, quals, a, b))
+                chunks.extend(self._locate_split(stats, batch, seg_read,
+                                                 seg_off, seg_len, codes,
+                                                 quals, a, b))
             else:
                 chunks.append(self._extract_chunk(host, a, b, batch, seg_read,
                                                   seg_off, seg_len))
@@ -357,7 +381,8 @@ class BucketMapPipeline:
         def _reader():
             try:
                 for b in iter_fastq_batches(fastq_path,
-                                            reads_per_batch=reads_per_chunk):
+                                            reads_per_batch=reads_per_chunk,
+                                            stage=self.stage):
                     while not stop.is_set():
                         try:
                             q.put(b, timeout=0.25)
@@ -371,16 +396,23 @@ class BucketMapPipeline:
             finally:
                 stop.set()
 
+        def _next_batch() -> ReadBatch | None:
+            """The reader's next ReadBatch, or None at the stream's end."""
+            while True:
+                try:
+                    return q.get(timeout=0.25)
+                except queue.Empty:
+                    if stop.is_set() and q.empty():
+                        return None
+
         thr = threading.Thread(target=_reader, name="bmtorch-fastq-reader")
         thr.start()
         try:
             while True:
-                try:
-                    batch = q.get(timeout=0.25)
-                except queue.Empty:
-                    if stop.is_set() and q.empty():
-                        break
-                    continue
+                with self.stage("wait_reads"):
+                    batch = _next_batch()
+                if batch is None:
+                    break
                 self._map_batch(writer, batch, qt, stats)
                 del batch
         finally:
@@ -453,10 +485,12 @@ class BucketMapPipeline:
             for chunk in self.locate_chunks(batch, stats):
                 if werr:
                     break
-                q.put(chunk)
+                with self.stage("handoff"):
+                    q.put(chunk)
         finally:
-            q.put(None)
-            thr.join()
+            with self.stage("drain"):
+                q.put(None)
+                thr.join()
         if werr:
             raise werr[0]
 
@@ -480,6 +514,20 @@ class BucketMapPipeline:
                 self._align_stream_emit(writer, batch, lr[sm], lbk[sm],
                                         loff[sm], lorig[sm], qt, stats)
             return
+        with self.stage("merge"):
+            rec_read, rec_bucket, rec_off, rec_votes, rec_orig = \
+                self._merge(batch, lr, lbk, loff, lvotes, lorig)
+        rec_flag = np.where(rec_orig, 0, 16).astype(np.int32)
+        rec_pos0 = self._bucket_sam_offset[rec_bucket] + rec_off
+        rec_mapq = np.minimum(60, 6 * rec_votes).astype(np.int32)
+        stats.mapped_locations += len(rec_read)
+        self._emit_records(writer, batch, rec_read, rec_flag, rec_bucket,
+                           rec_pos0, rec_mapq, None)
+
+    def _merge(self, batch, lr, lbk, loff, lvotes, lorig):
+        """The align-free merge of one location chunk: (read, bucket,
+        offset, votes, is_orig) record arrays sorted by read."""
+        cfg = self.cfg
         multi_mask = np.zeros(len(lr), bool)
         if len(lr) > 1:
             same = lr[1:] == lr[:-1]
@@ -559,12 +607,7 @@ class BucketMapPipeline:
         rec_read, rec_bucket, rec_off = (rec_read[order], rec_bucket[order],
                                          rec_off[order])
         rec_votes, rec_orig = rec_votes[order], rec_orig[order]
-        rec_flag = np.where(rec_orig, 0, 16).astype(np.int32)
-        rec_pos0 = self._bucket_sam_offset[rec_bucket] + rec_off
-        rec_mapq = np.minimum(60, 6 * rec_votes).astype(np.int32)
-        stats.mapped_locations += len(rec_read)
-        self._emit_records(writer, batch, rec_read, rec_flag, rec_bucket,
-                           rec_pos0, rec_mapq, None)
+        return rec_read, rec_bucket, rec_off, rec_votes, rec_orig
 
     def _align_long_emit(self, writer, batch, lr, lbk, loff, lorig, lso, qt,
                          stats):
@@ -816,17 +859,21 @@ class BucketMapPipeline:
                 rr, batch.lengths[rr].astype(np.int32),
                 batch.seq_ascii, batch.qual_ascii)
             if out is not None:
-                writer._f.flush()
-                writer._f.buffer.write(out)
+                with self.stage("sam_write"):
+                    writer._f.flush()
+                    writer._f.buffer.write(out)
                 return
         bucket_names = self.index.bucket_names
-        for i in range(len(rec_read)):
-            r = int(rec_read[i])
-            seq = batch.seq_ascii[r, : batch.lengths[r]].tobytes().decode()
-            qual = batch.qual_ascii[r, : batch.lengths[r]].tobytes().decode()
-            cig = "*" if rec_cigar is None else (
-                rec_cigar[0][rec_cigar[1][i]:rec_cigar[1][i + 1]].decode()
-                or "*")
-            writer.write(batch.ids[r], int(rec_flag[i]),
-                         bucket_names[int(rec_bucket[i])],
-                         int(rec_pos0[i]), int(rec_mapq[i]), seq, qual, cig)
+        with self.stage("sam_write"):
+            for i in range(len(rec_read)):
+                r = int(rec_read[i])
+                seq = batch.seq_ascii[r, : batch.lengths[r]].tobytes().decode()
+                qual = batch.qual_ascii[r, : batch.lengths[r]].tobytes() \
+                    .decode()
+                cig = "*" if rec_cigar is None else (
+                    rec_cigar[0][rec_cigar[1][i]:rec_cigar[1][i + 1]].decode()
+                    or "*")
+                writer.write(batch.ids[r], int(rec_flag[i]),
+                             bucket_names[int(rec_bucket[i])],
+                             int(rec_pos0[i]), int(rec_mapq[i]), seq, qual,
+                             cig)

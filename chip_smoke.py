@@ -1071,7 +1071,8 @@ def mesh_phase(torch, timer, index, fastq, gt, sam, dev, rows_all, packed,
     log(f"[mesh] staged mesh pipeline: {stats.num_reads} reads in "
         f"{map_s:.2f} s = {stats.num_reads / map_s:.1f} reads/s; pct_mapped "
         f"{mapped:.2f} pct_correct_position(+-10) {correct:.2f}; SAM equal "
-        f"to phase 4's {same}; step+decode {stats.fine_seconds:.2f} s; "
+        f"to phase 4's {same}; dispatch cycles "
+        f"{stats.cycle_seconds:.2f} s; "
         f"device peak {peak:.2f} GiB; launches {launches}; card "
         f"{card_name_and_limit()}")
     if not same:
@@ -1174,7 +1175,7 @@ def vote_paths_phase(torch, index, fastq, gt, sam, dev, packed, vec_single,
     log(f"[scan] {stats.num_reads} reads in {map_s:.2f} s = "
         f"{stats.num_reads / map_s:.1f} reads/s; pct_mapped {mapped:.2f} "
         f"pct_correct_position(+-10) {correct:.2f}; SAM equal to phase 4's "
-        f"{same}; step+decode {stats.fine_seconds:.2f} s; device peak "
+        f"{same}; dispatch cycles {stats.cycle_seconds:.2f} s; device peak "
         f"{peak:.2f} GiB; launches {launches}; card {card_name_and_limit()}")
     if not same:
         raise RuntimeError("the scan path's SAM differs from phase 4's")
@@ -1852,9 +1853,9 @@ def ont_phase(torch, timer, dev, index, genome, cache_dir: str,
             f"{mapped:.2f}; pct_correct_position +-10 {c10:.2f}, +-5 "
             f"{c5:.2f}, +-{tol} {ctol:.2f}; locations/read "
             f"{stats.mapped_locations / stats.num_reads:.4f}; candidate "
-            f"pairs {stats.candidate_pairs}; step+decode "
-            f"{stats.fine_seconds:.2f} s, segmenting "
-            f"{stats.coarse_seconds:.2f} s, SAM {stats.output_seconds:.2f} s;"
+            f"pairs {stats.candidate_pairs}; dispatch cycles "
+            f"{stats.cycle_seconds:.2f} s, segmenting "
+            f"{stats.segment_seconds:.2f} s, SAM {stats.output_seconds:.2f} s;"
             f" device peak {peak:.2f} GiB; {host_rss()}; launches {launches}")
         if stats.num_reads < n_reads:
             raise RuntimeError(f"{what}: mapped {stats.num_reads} of "
@@ -2055,7 +2056,8 @@ def grch38_phase(torch, timer, dev, cache_dir: str,
         f"{stats.num_reads / seconds:.1f} reads/s; pct_mapped {mapped:.2f} "
         f"pct_correct_position(+-10) {correct:.2f} locations/read "
         f"{stats.mapped_locations / stats.num_reads:.4f}; candidate pairs "
-        f"{stats.candidate_pairs}; step+decode {stats.fine_seconds:.2f} s, "
+        f"{stats.candidate_pairs}; dispatch cycles "
+        f"{stats.cycle_seconds:.2f} s, "
         f"SAM writer {stats.output_seconds:.2f} s; device peak {peak:.2f} "
         f"GiB; {host_rss()}; launches {launches}; card "
         f"{card_name_and_limit()}")
@@ -2466,8 +2468,9 @@ def main() -> int:
         f"{stats.num_reads / map_s:.1f} reads/s; pct_mapped {mapped:.2f} "
         f"pct_correct_position(+-10) {correct:.2f} locations/read "
         f"{stats.mapped_locations / stats.num_reads:.4f}; candidate pairs "
-        f"{stats.candidate_pairs}; step+decode {stats.fine_seconds:.2f} s, "
-        f"segmenting {stats.coarse_seconds:.2f} s, SAM writer "
+        f"{stats.candidate_pairs}; dispatch cycles "
+        f"{stats.cycle_seconds:.2f} s, "
+        f"segmenting {stats.segment_seconds:.2f} s, SAM writer "
         f"{stats.output_seconds:.2f} s; device peak {peak:.2f} GiB; "
         f"launches {launches}")
     if stats.num_reads < args.reads:
@@ -2536,8 +2539,9 @@ def main() -> int:
         f"pct_correct_position(+-10) {correct:.2f} locations/read "
         f"{stats.mapped_locations / stats.num_reads:.4f}; DP sub-batches "
         f"{al.counts['sub_batches']} pairs {al.counts['pairs']} ops re-runs "
-        f"{al.counts['ops_reruns']}; locate (step+decode) "
-        f"{stats.fine_seconds:.2f} s, segmenting {stats.coarse_seconds:.2f} s, "
+        f"{al.counts['ops_reruns']}; locate (dispatch cycles) "
+        f"{stats.cycle_seconds:.2f} s, segmenting "
+        f"{stats.segment_seconds:.2f} s, "
         f"align+SAM {stats.output_seconds:.2f} s; records {n_rec} ('*' "
         f"{n_star}); device peak {peak:.2f} GiB; launches {al_launches}")
     if stats.num_reads < args.reads:
