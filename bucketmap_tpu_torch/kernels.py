@@ -25,12 +25,12 @@ import threading
 import time
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-SOURCES = ("coarse_score.cu", "fine_window.cu", "tally.cu", "dp_fwd.cu",
-           "presence_gather.cu", "chunk_scan.cu")
+SOURCES = ("coarse_score.cu", "fine_window.cu", "fine_scan.cu", "tally.cu",
+           "dp_fwd.cu", "presence_gather.cu", "chunk_scan.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
-KERNELS = ("coarse_score", "fine_search", "fine_window", "tally", "dp_fwd",
-           "dp_runs", "presence_gather", "chunk_scan")
+KERNELS = ("coarse_score", "fine_search", "fine_window", "fine_scan", "tally",
+           "dp_fwd", "dp_runs", "presence_gather", "chunk_scan")
 
 LAUNCHES = {name: 0 for name in KERNELS}
 BUILD_INFO: dict = {}
@@ -134,6 +134,10 @@ def library():
                                            p, p, p, i64, i32, i32, i32, i32,
                                            p, p, p]
             lib.bm_fine_search.restype = i32
+            lib.bm_fine_scan.argtypes = [p, i64, i64, i64, p, p, p, p, i64,
+                                         p, p, p, i64, i32, i32, i32, p, p,
+                                         p]
+            lib.bm_fine_scan.restype = i32
             lib.bm_tally.argtypes = [p, p, i64, i32, i32, i32, i32, i32, p, p,
                                      p, p]
             lib.bm_tally.restype = i32

@@ -11,13 +11,16 @@ tally's proposals. The fine-search kernel (`csrc/fine_window.cu`
 chunk's lanes to the proposals; its plain version, fine_search_plain,
 is the composition of the pieces kept beside it (window_args,
 fine_window_plain, tally_args), and the fine-window kernel
-(`bm_fine_window`, the window alone) stays as their A/B baseline. The
-host build's 2-D packed table, its prefix and positional tables, and the
-table-free scan of the packed bucket sequences find the same occurrences
-with plain torch gathers, searches and top-k, as the JAX package does
-with XLA. On every path the proposals go through the sequential vote
-(the tally kernel, `csrc/tally.cu`). On CPU tensors every kernel runs as
-its plain PyTorch version.
+(`bm_fine_window`, the window alone) stays as their A/B baseline. With
+no fine table the fine-scan kernel (`csrc/fine_scan.cu` `bm_fine_scan`)
+walks each lane's packed bucket once, from the chunk's lanes to the
+proposals in one launch; its plain version, fine_scan_plain, is targets,
+scan_occurrences (every k-mer hashed, a top-k per sample) and
+proposal_args. The host build's 2-D packed table and its prefix and
+positional tables find the same occurrences with plain torch gathers and
+searches, as the JAX package does with XLA. On every path the proposals
+go through the sequential vote (the tally kernel, `csrc/tally.cu`). On
+CPU tensors every kernel runs as its plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -332,6 +335,94 @@ def fine_search(fine_packed, fine_ptab, vote_bucket, lane_rc, lane_read,
     return prop, valid
 
 
+def scan_occurrences(buckets_packed, bucket_lengths, bucket_ids, tgt_hash,
+                     k: int, O: int = MAX_OCC):
+    """No fine table (vote.py:477-526): hash every k-mer of each pair's
+    bucket, then per sample the top O of lpos - position over the
+    matches (the earliest positions, ascending). buckets_packed (N, Wb)
+    int32 words, bucket_lengths (N,); bucket_ids (P,), tgt_hash (P, p)
+    int64. Returns (occ_pos, occ_valid) (P, p, O); occ_pos is lpos where
+    not valid. One sample's (P, lpos) score is alive at a time; lanes
+    without a match score 0."""
+    lb = buckets_packed.shape[1] * 16
+    lpos = lb - k + 1
+    b = bucket_ids.to(torch.int64)
+    bk = kmer_hashes(unpack_2bit(buckets_packed[b], lb), k)     # (P, lpos)
+    bpos = torch.arange(lpos, dtype=torch.int64, device=bk.device)
+    # hashes are >= 0: -1 never matches a target
+    bk = torch.where(bpos[None, :] <= (bucket_lengths[b].to(
+        torch.int64)[:, None] - k), bk, -1)
+    rev = (lpos - bpos).to(torch.int32)
+    tops = []
+    for j in range(tgt_hash.shape[1]):
+        score = torch.where(bk == tgt_hash[:, j:j + 1], rev, 0)
+        tops.append(torch.topk(score, O, dim=1, sorted=True).values)
+        del score
+    occ_score = torch.stack(tops, dim=1).to(torch.int64)           # (P, p, O)
+    return lpos - occ_score, occ_score > 0
+
+
+def fine_scan_plain(buckets_packed, bucket_lengths, vote_bucket, lane_rc,
+                    lane_read, samp_hash, samp_idx, lengths, k: int,
+                    O: int = MAX_OCC):
+    """Plain PyTorch version of the fine-scan kernel: the table-free vote
+    from a chunk's lanes to the tally's arguments, the composition of the
+    lanes' sample gathers, targets, scan_occurrences and proposal_args.
+
+    buckets_packed (N, Wb) int32, bucket_lengths (N,) int64; the lane and
+    sample arguments as fine_search_plain's. Returns (prop, valid) (P,
+    p*O) int32 in the tally's layout."""
+    rd = lane_read.to(torch.int64)
+    tgt_hash, tgt_idx = targets(lane_rc, samp_hash[rd], samp_idx[rd],
+                                lengths[rd], k)
+    occ_pos, occ_valid = scan_occurrences(buckets_packed, bucket_lengths,
+                                          vote_bucket, tgt_hash, k, O)
+    return proposal_args(occ_pos, occ_valid, tgt_idx, lane_rc)
+
+
+def fine_scan(buckets_packed, bucket_lengths, vote_bucket, lane_rc,
+              lane_read, samp_hash, samp_idx, lengths, k: int,
+              O: int = MAX_OCC):
+    """Fine scan: the CUDA kernel on a CUDA table, the plain version on a
+    CPU table. Same arguments and results as fine_scan_plain."""
+    if buckets_packed.device.type == "cpu":
+        return fine_scan_plain(buckets_packed, bucket_lengths, vote_bucket,
+                               lane_rc, lane_read, samp_hash, samp_idx,
+                               lengths, k, O)
+    N, Wb = buckets_packed.shape
+    P = vote_bucket.shape[0]
+    S, p = samp_hash.shape
+    # its rows may be a view of wider ones (the align mode's padded genome)
+    if not buckets_packed.is_cuda or buckets_packed.dtype != torch.int32 \
+            or buckets_packed.stride(1) != 1:
+        raise ValueError("buckets_packed must be a CUDA int32 tensor whose "
+                         "rows are contiguous")
+    for name, t, dtype, shape in (
+            ("bucket_lengths", bucket_lengths, torch.int64, (N,)),
+            ("vote_bucket", vote_bucket, torch.int64, (P,)),
+            ("lane_rc", lane_rc, torch.bool, (P,)),
+            ("lane_read", lane_read, torch.int64, (P,)),
+            ("samp_hash", samp_hash, torch.int64, (S, p)),
+            ("samp_idx", samp_idx, torch.int64, (S, p)),
+            ("lengths", lengths, torch.int32, (S,))):
+        kernels.require(t, name, dtype, shape)
+        if t.device != buckets_packed.device:
+            raise ValueError(f"{name} and buckets_packed must be on the same "
+                             f"device")
+    dev = buckets_packed.device
+    prop = torch.empty((P, p * O), dtype=torch.int32, device=dev)
+    valid = torch.empty((P, p * O), dtype=torch.int32, device=dev)
+    err = kernels.library().bm_fine_scan(
+        buckets_packed.data_ptr(), N, Wb, buckets_packed.stride(0),
+        bucket_lengths.data_ptr(), vote_bucket.data_ptr(), lane_rc.data_ptr(),
+        lane_read.data_ptr(), P, samp_hash.data_ptr(), samp_idx.data_ptr(),
+        lengths.data_ptr(), S, p, O, k, prop.data_ptr(), valid.data_ptr(),
+        kernels.stream_handle(buckets_packed))
+    kernels.check(err, "fine_scan")
+    kernels.LAUNCHES["fine_scan"] += 1
+    return prop, valid
+
+
 class FineLocator:
     """Locator sampling and the in-bucket vote on one device, on whichever
     fine tables `tables` holds (vote_path names the path):
@@ -347,8 +438,10 @@ class FineLocator:
               "fine_pos" (N, lpos) int32 positions in hash order;
       sorted  "fine_pos" and "buckets_packed" (N, Wb) int32 words: a binary
               search over the whole row, hashes derived from the words;
-      scan    "buckets_packed" and "bucket_lengths" (N,): every k-mer of
-              the bucket compared with every sample.
+      scan    "buckets_packed" and "bucket_lengths" (N,): the fine-scan
+              kernel compares every k-mer of the lane's bucket with every
+              sample, from the lanes to the tally's proposals in one
+              launch.
 
     Every path ends in the tally kernel. "search_steps", "low_bits" and
     "locator_sample_tab" complete the tables."""
@@ -409,8 +502,8 @@ class FineLocator:
                            self.search_steps)
 
     def occurrences(self, bucket_ids, tgt_hash):
-        """Packed, prefix, sorted and scan paths: the first MAX_OCC
-        positions of each target in its bucket, ascending. Returns
+        """Packed, prefix and sorted paths: the first MAX_OCC positions
+        of each target in its bucket, ascending. Returns
         (occ_pos, occ_valid) (P, p, O); occ_pos is arbitrary where not
         valid."""
         bid = bucket_ids.to(torch.int64)[:, None]
@@ -495,46 +588,27 @@ class FineLocator:
         raw = fpos[b3, occ_idx].to(torch.int64)
         return raw, self._hash_at(b3, raw) == tgt_hash[:, :, None]
 
-    def _occ_scan(self, bid, tgt_hash):
-        """No fine table (vote.py:477-526): hash every k-mer of the pair's
-        bucket, then per sample the top O of lpos - position over the
-        matches (the earliest positions, ascending). One sample's (P,
-        lpos) score is alive at a time; lanes without a match score 0."""
-        k = self.cfg.query_seed
-        bp = self.buckets_packed
-        lb = bp.shape[1] * 16
-        lpos = lb - k + 1
-        b = bid[:, 0]
-        bk = kmer_hashes(unpack_2bit(bp[b], lb), k)                 # (P, lpos)
-        bpos = torch.arange(lpos, dtype=torch.int64, device=bk.device)
-        # hashes are >= 0: -1 never matches a target
-        bk = torch.where(bpos[None, :] <= (self.bucket_lengths[b].to(
-            torch.int64)[:, None] - k), bk, -1)
-        rev = (lpos - bpos).to(torch.int32)
-        tops = []
-        for j in range(tgt_hash.shape[1]):
-            score = torch.where(bk == tgt_hash[:, j:j + 1], rev, 0)
-            tops.append(torch.topk(score, MAX_OCC, dim=1, sorted=True).values)
-            del score
-        occ_score = torch.stack(tops, dim=1).to(torch.int64)       # (P, p, O)
-        return lpos - occ_score, occ_score > 0
-
     def search_lanes(self, vote_bucket, lane_rc, lane_read, samp_hash,
                      samp_idx, lengths):
         """The vote up to the tally for lanes that name their row of the
         step's samples (fine_search's lane arguments), as the tally's
-        arguments: on the tiled path the fine-search kernel straight from
-        the lanes, on the others each sample's occurrences in its lane's
-        bucket."""
+        arguments: on the tiled path the fine-search kernel and on the
+        scan path the fine-scan kernel, straight from the lanes; on the
+        others each sample's occurrences in its lane's bucket."""
+        k = self.cfg.query_seed
         if self.path == "tiled":
             prop, valid = fine_search(
                 self.fine_packed, self.fine_ptab, vote_bucket, lane_rc,
-                lane_read, samp_hash, samp_idx, lengths, self.cfg.query_seed,
-                self.low_bits, self.search_steps)
+                lane_read, samp_hash, samp_idx, lengths, k, self.low_bits,
+                self.search_steps)
+            return (prop, valid, *self._tally_consts(samp_hash.shape[1]))
+        if self.path == "scan":
+            prop, valid = fine_scan(
+                self.buckets_packed, self.bucket_lengths, vote_bucket,
+                lane_rc, lane_read, samp_hash, samp_idx, lengths, k)
             return (prop, valid, *self._tally_consts(samp_hash.shape[1]))
         tgt_hash, tgt_idx = targets(lane_rc, samp_hash[lane_read],
-                                    samp_idx[lane_read], lengths[lane_read],
-                                    self.cfg.query_seed)
+                                    samp_idx[lane_read], lengths[lane_read], k)
         occ_pos, occ_valid = self.occurrences(vote_bucket, tgt_hash)
         return (*proposal_args(occ_pos, occ_valid, tgt_idx, lane_rc),
                 *self._tally_consts(*occ_valid.shape[1:]))

@@ -7,7 +7,7 @@ Phases, each reported on its own line:
   1. environment: the card (nvidia-smi name and power limit), torch and
      CUDA versions, whether nvcc and triton are present; exits non-zero
      without a CUDA device;
-  2. build: the eight CUDA kernels of the six sources in
+  2. build: the nine CUDA kernels of the seven sources in
      bucketmap_tpu_torch/csrc, one nvcc for sm_90a per source, all
      started together, and the C++ host library from csrc/host with g++;
   3. world: the bench world (bench.py's seeded repeat genome, index and
@@ -62,8 +62,11 @@ Phases, each reported on its own line:
      upload, and a step on it equals phase 5's vector; (b) with no fine
      tables (vote path "scan") one batch equals phase 5's vector, ms per
      vote chunk and the device peak, and the map of all reads gives
-     phase 4's SAM byte for byte, tally launched and neither fine_search
-     nor fine_window;
+     phase 4's SAM byte for byte, fine_scan launched once per live vote
+     chunk (as many as tally), torch.topk never, neither fine_search nor
+     fine_window; fine_scan against fine_scan_plain (exact, times,
+     bounds) on a made 4,096-lane chunk over 384 buckets of grch38f025's
+     4,115-word rows, at k 14 and p 10, k 16, and p 20;
      (c) on a 100 Mbp bench world (the JAX package builds the 2-D
      packed, prefix and positional tables only on the host, in numpy:
      minutes and ~17 GB of host memory at 1.7 Gbp) one batch through the
@@ -166,8 +169,9 @@ Phases, each reported on its own line:
      S one checksum), each printing its tables and raising where a check
      fails or it launched none of its path's kernels (PROFILE_KERNELS).
 Each phase checks the launches of the kernels its path runs (on the
-tiled path fine_search once per live vote chunk, fine_window never; on
-the others neither). Any failure
+tiled path fine_search once per live vote chunk, fine_window and
+fine_scan never; on the scan path fine_scan once per live vote chunk;
+on the others none of the three). Any failure
 raises and exits non-zero, and so does finding jax, flax, optax, the JAX
 package or its research tree imported. The last two lines are a JSON
 object per kernel (with its launches in phases 14-15 under
@@ -217,6 +221,9 @@ WINDOW_MADE = 4096            # windows made from the 3.1 Gbp table's slots
 DEEP_T = 2048                 # 128-slot rows a bucket of the made deep table
 DEEP_SLOTS = 200_000          # its deepest segment: three ballot rounds
 NARROW_LANES = 4096           # lanes of each narrowing check
+SCAN_BUCKETS = 384            # buckets of the made table of the fine_scan case
+SCAN_WB = 4115                # its words a row: grch38f025's 65,840 bases
+SCAN_LANES = 4096             # lanes of each fine_scan case: one vote chunk
 PAST_ELEMENT = 2**31          # phase 15 holds fine_window and fine_search
                               # past this element
 BENCH_READS = 1000000         # phase 16: bench.py's default read count
@@ -413,6 +420,128 @@ def search_bound(torch, fine_packed, fine_ptab, vote_bucket, lane_rc,
     return (win_rows.numel() * 512 + outside * 32 + sectors * 32 + P * 17
             + reads * (p * 16 + 4) + 2 * P * p * MAX_OCC * 4,
             frow.numel() * 384 * 4)
+
+
+def fine_scan_bound(torch, buckets_packed, bucket_lengths, vote_bucket,
+                    lane_read, p: int, k: int):
+    """(bytes, int ops) of the fine scan on these lanes, each byte counted
+    once: each distinct bucket row the lanes read, each lane's bucket,
+    strand and read, each distinct read's samples and length, the two
+    (P, p*O) int32 outputs; one operation per k-mer position of each
+    lane's bucket (no fewer can look at every position)."""
+    from bucketmap_tpu_torch.ops.vote import MAX_OCC
+
+    P, wb = vote_bucket.shape[0], buckets_packed.shape[1]
+    rows = torch.unique(vote_bucket).numel()
+    reads = torch.unique(lane_read).numel()
+    lpos = wb * 16 - k + 1
+    npos = (bucket_lengths[vote_bucket] - k + 1).clamp(0, lpos).sum()
+    return (rows * wb * 4 + P * 17 + reads * (p * 16 + 4)
+            + 2 * P * p * MAX_OCC * 4, int(npos))
+
+
+def scan_table(torch, dev, n: int, wb: int, seed: int):
+    """A made packed bucket table from `seed`: (buckets_packed (n, wb)
+    int32, bucket_lengths (n,) int64) on `dev` and the codes (n, wb*16)
+    on the host. Random bases; every eighth bucket starts with a quarter
+    row of a 37-base tandem repeat and 512 bases of A, so that samples
+    there have more than MAX_OCC occurrences; every 50th is shorter than
+    its row, as a reference's last bucket is."""
+    g = torch.Generator().manual_seed(seed)
+    codes = torch.randint(0, 4, (n, wb * 16), generator=g)
+    q = wb * 4
+    unit = torch.randint(0, 4, (37,), generator=g)
+    codes[::8, :q] = unit.repeat(q // 37 + 1)[:q]
+    codes[::8, q:q + 512] = 0
+    lengths = torch.full((n,), wb * 16, dtype=torch.int64)
+    lengths[5::50] = torch.randint(300, wb * 16, (lengths[5::50].numel(),),
+                                   generator=g)
+    words = (codes.view(n, wb, 16) << (2 * torch.arange(16))).sum(-1)
+    words = torch.where(words >= 2**31, words - 2**32, words)
+    return words.to(torch.int32).to(dev), lengths.to(dev), codes
+
+
+def scan_lanes(torch, dev, codes, lengths, k: int, p: int, P: int,
+               seed: int, read_len: int = 300):
+    """The lanes of one vote chunk over scan_table's buckets: (vote_bucket,
+    lane_rc, lane_read, samp_hash, samp_idx, lengths) as DeviceMapper.
+    chunk_lanes gives them. Lane i reads read i, a read_len-base read of
+    its bucket on its strand (p samples at sorted random indices, one in
+    four replaced by a random hash), but 64 lanes whose samples are their
+    bucket's last k-mers and those past its end, and the last 64 lanes,
+    which read lane 0 as the step's padding lanes do."""
+    from bucketmap_tpu_torch.ops.encoding import revcomp_hash
+
+    g = torch.Generator().manual_seed(seed)
+    n = codes.shape[0]
+    lens = lengths.cpu()
+    vb = torch.randint(0, n, (P,), generator=g)
+    rc = torch.randint(0, 2, (P,), generator=g).bool()
+    start = (torch.rand(P, generator=g)
+             * (lens[vb] - read_len + 1).clamp(min=1)).long()
+    seg = torch.full((P,), read_len, dtype=torch.int32)
+    si = torch.sort(torch.randint(0, read_len - k + 1, (P, p), generator=g),
+                    dim=1).values
+    # a reverse-complement read's sample si is the bucket's k-mer at
+    # read_len - k - si, complemented and reversed
+    pos = start[:, None] + torch.where(rc[:, None], read_len - k - si, si)
+    # 64 forward lanes whose samples are their bucket's edge k-mers: the
+    # last three inside it, the ones past its end (the row's padding)
+    edge = slice(P - 128, P - 64)
+    rc[edge] = False
+    pos[edge] = ((lens[vb[edge]] - k)[:, None] + torch.arange(-2, p - 2)
+                 ).clamp(0, codes.shape[1] - k)
+    kmer = codes[vb[:, None, None], pos[:, :, None] + torch.arange(k)]
+    h = (kmer << (2 * (k - 1 - torch.arange(k)))).sum(-1)
+    h = torch.where(rc[:, None], revcomp_hash(h, k), h)
+    rnd = torch.randint(0, 4**k, (P, p), generator=g)
+    h = torch.where(torch.rand((P, p), generator=g) < 0.25, rnd, h)
+    rd = torch.arange(P)
+    rd[-64:] = 0
+    return tuple(t.contiguous().to(dev) for t in (vb, rc, rd, h, si, seg))
+
+
+def fine_scan_cases(torch, timer, dev, launches: int,
+                    main_launches: int) -> list:
+    """fine_scan against fine_scan_plain on one SCAN_LANES-lane vote chunk
+    over scan_table's SCAN_BUCKETS rows of SCAN_WB words: at k = 14 and
+    p = 10 (grch38f025's flags), k = 16 and p = 10, and k = 14 and p = 20
+    (the long-read flags); exact, with times and bounds (check_kernel);
+    at p = 10 also on the table's rows as a view of wider ones.
+    launches: fine_scan's on the scan path's map; main_launches: on the
+    main path. Returns the report entries."""
+    from bucketmap_tpu_torch.ops.vote import fine_scan, fine_scan_plain
+
+    bp, blen, codes = scan_table(torch, dev, SCAN_BUCKETS, SCAN_WB, seed=41)
+    out = []
+    for k, p in ((14, 10), (16, 10), (14, 20)):
+        lanes = scan_lanes(torch, dev, codes, blen, k, p, SCAN_LANES,
+                           seed=50 + k + p)
+        args = (bp, blen, *lanes, k)
+        want = fine_scan_plain(*args)
+        full = int((want[1].view(SCAN_LANES, p, -1).sum(-1) == 8).sum())
+        out.append(check_kernel(
+            torch, timer, "fine_scan", "bucketmap_tpu_torch/csrc/fine_scan.cu",
+            "bucketmap_tpu/ops/vote.py:477", lambda: fine_scan(*args),
+            lambda: fine_scan_plain(*args),
+            f"one {SCAN_LANES}-lane vote chunk, k {k}, p {p}, over "
+            f"{SCAN_BUCKETS} buckets of {SCAN_WB} words "
+            f"({int(want[1].sum())} valid proposals, {full} samples with "
+            f"every slot filled)",
+            fine_scan_bound(torch, bp, blen, lanes[0], lanes[2], p, k),
+            launches, main_launches))
+        if p == 10:   # rows that are a view of wider ones, as align mode's
+            wide = torch.zeros((bp.shape[0], bp.shape[1] + 5),
+                               dtype=torch.int32, device=dev)
+            wide[:, :bp.shape[1]] = bp
+            view = (wide[:, :bp.shape[1]], *args[1:])
+            check_equal(torch, "fine_scan", f"k {k}, p {p}, the table's rows "
+                        f"a view of rows 5 words wider",
+                        lambda: fine_scan(*view), lambda: want)
+            del wide, view
+        del want, lanes, args
+        torch.cuda.empty_cache()
+    return out
 
 
 def tally_bound(torch, prop, valid, p: int, n_occ: int, indel: int):
@@ -1092,10 +1221,13 @@ def mesh_phase(torch, timer, index, fastq, gt, sam, dev, rows_all, packed,
     return report
 
 
-def vote_paths_phase(torch, index, fastq, gt, sam, dev, packed, vec_single,
-                     candidate_pairs: int) -> None:
-    """Phase 9: the device occupancy build, the scan vote at full scale,
-    and the five vote paths on one batch of a 100 Mbp world."""
+def vote_paths_phase(torch, timer, index, fastq, gt, sam, dev, packed,
+                     vec_single, candidate_pairs: int,
+                     main_launches: dict) -> list:
+    """Phase 9: the device occupancy build, the scan vote at full scale
+    and fine_scan against its plain version (fine_scan_cases), and the
+    five vote paths on one batch of a 100 Mbp world. Returns fine_scan's
+    report entries."""
     import dataclasses
 
     import numpy as np
@@ -1168,26 +1300,33 @@ def vote_paths_phase(torch, index, fastq, gt, sam, dev, packed, vec_single,
         raise RuntimeError("the scan path's step differs from phase 5's")
     del lanes
     sam_scan = os.path.join(HERE, ".bench_cache", "chip_smoke_scan.sam")
-    stats, map_s, launches, peak = timed_map(torch, dev, pipe, fastq,
-                                             sam_scan)
+    with CallLog(torch, "topk") as topk:
+        stats, map_s, launches, peak = timed_map(torch, dev, pipe, fastq,
+                                                 sam_scan)
+    n_topk = len(topk.kwargs["topk"])
     mapped, correct = world.score_sam(sam_scan, gt, index)
     same = filecmp.cmp(sam, sam_scan, shallow=False)
     log(f"[scan] {stats.num_reads} reads in {map_s:.2f} s = "
         f"{stats.num_reads / map_s:.1f} reads/s; pct_mapped {mapped:.2f} "
         f"pct_correct_position(+-10) {correct:.2f}; SAM equal to phase 4's "
         f"{same}; dispatch cycles {stats.cycle_seconds:.2f} s; device peak "
-        f"{peak:.2f} GiB; launches {launches}; card {card_name_and_limit()}")
+        f"{peak:.2f} GiB; launches {launches}, torch.topk calls {n_topk}; "
+        f"card {card_name_and_limit()}")
     if not same:
         raise RuntimeError("the scan path's SAM differs from phase 4's")
     if mapped < MIN_MAPPED or correct < MIN_CORRECT:
         raise RuntimeError(f"scan accuracy below the floor: mapped "
                            f"{mapped:.2f}, correct {correct:.2f}")
-    if launches["tally"] == 0 or launches["fine_search"] \
-            or launches["fine_window"]:
-        raise RuntimeError(f"the scan path launched {launches}")
+    if launches["tally"] == 0 or launches["fine_scan"] != launches["tally"] \
+            or launches["fine_search"] or launches["fine_window"] or n_topk:
+        raise RuntimeError(f"the scan path must launch fine_scan once per "
+                           f"live vote chunk and torch.topk never: "
+                           f"{launches}, torch.topk calls {n_topk}")
     del pipe, dm
     gc.collect()
     torch.cuda.empty_cache()
+    report = fine_scan_cases(torch, timer, dev, launches["fine_scan"],
+                             main_launches["fine_scan"])
 
     # (c) the five vote paths on a 100 Mbp world
     idx, fq100, _, world_s = world.bench_world(
@@ -1230,14 +1369,16 @@ def vote_paths_phase(torch, index, fastq, gt, sam, dev, packed, vec_single,
             f"launches {launches}")
         if not torch.equal(vecs[path], vecs["tiled"]):
             raise RuntimeError(f"the {path} vote path's vector differs")
-        tiled_ok = launches["fine_search"] == launches["tally"] \
-            if path == "tiled" else launches["fine_search"] == 0
-        if launches["tally"] == 0 or launches["fine_window"] or not tiled_ok:
+        own = {"tiled": "fine_search", "scan": "fine_scan"}.get(path)
+        ok = all(launches[n] == (launches["tally"] if n == own else 0)
+                 for n in ("fine_search", "fine_scan", "fine_window"))
+        if launches["tally"] == 0 or not ok:
             raise RuntimeError(f"the {path} path launched {launches}")
         del dm, lanes, p100, one
         torch.cuda.empty_cache()
     log(f"[paths] five vote paths equal word for word on "
         f"{vecs['tiled'].shape[0]} words; card {card_name_and_limit()}")
+    return report
 
 
 def run_cli(torch, argv, what: str):
@@ -1296,14 +1437,16 @@ def report_numbers(out: str):
 
 def check_map_launches(launches: dict, kernels_run, what: str) -> None:
     """Every kernel of kernels_run launched, and the tiled vote's: one
-    fine_search a live vote chunk (as many as tally), fine_window never."""
+    fine_search a live vote chunk (as many as tally), fine_window and
+    fine_scan never."""
     idle = [k for k in kernels_run if launches[k] == 0]
     if idle:
         raise RuntimeError(f"{what} never launched: {idle}")
-    if launches["fine_window"] or launches["fine_search"] != launches["tally"]:
+    if launches["fine_window"] or launches["fine_scan"] \
+            or launches["fine_search"] != launches["tally"]:
         raise RuntimeError(f"{what}: the tiled vote must launch fine_search "
-                           f"once per live vote chunk and fine_window never: "
-                           f"{launches}")
+                           f"once per live vote chunk and fine_window and "
+                           f"fine_scan never: {launches}")
 
 
 def cli_phase(torch, device: str, index, cache_dir: str, idx_name: str,
@@ -2631,8 +2774,8 @@ def main() -> int:
                              rows_all, packed, vec_single, launches)
 
     # ---- 9. vote paths and device builds --------------------------------
-    vote_paths_phase(torch, index, fastq, gt, sam, dev, packed, vec_single,
-                     candidate_pairs)
+    report += vote_paths_phase(torch, timer, index, fastq, gt, sam, dev,
+                               packed, vec_single, candidate_pairs, launches)
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -9,8 +9,14 @@
   * per path, the step vector against the JAX DeviceMapper's on an index
     that holds only that path's host tables, with vote_path naming the
     JAX _vote_path;
+  * fine_scan_plain, the scan path's vote from a chunk's lanes, against
+    the JAX scan's pre-tally arrays and the port's targets + occurrences
+    + proposal_args, on the same worlds;
   * the pipeline's SAM at k = 15 and 16, defaults on both sides: the
     configurations that raised in the port before it had these paths;
+  * at k = 14 over 65,536-base buckets, where the packed slots' 16
+    position bits overflow, the port's own index (no fine tables, as
+    the benchmark builds it): the scan path, step vector and SAM;
   * the table choice: the device-build budget, fine_build="device" where
     the packed encoding does not apply, and the option checks.
 """
@@ -39,8 +45,12 @@ from bucketmap_tpu_torch.mapper.device_pipeline import (DeviceMapper,
                                                         fine_tables_from_numpy,
                                                         host_fine_arrays)
 from bucketmap_tpu_torch.mapper.pipeline import BucketMapPipeline
-from bucketmap_tpu_torch.ops.vote import FineLocator, locator_sample_tab
-from test_torch_host import port_index
+from bucketmap_tpu_torch.ops.encoding import kmer_hashes, unpack_2bit
+from bucketmap_tpu_torch.ops.vote import (FineLocator, MAX_OCC, fine_scan,
+                                          fine_scan_plain, locator_sample_tab,
+                                          proposal_args, scan_occurrences,
+                                          targets)
+from test_torch_host import assert_same_index, port_index
 
 # the host tables each path keeps: a path takes the first it finds
 KEEP = {
@@ -111,8 +121,9 @@ def _vote_world(kind, k):
 
 @functools.lru_cache(maxsize=None)
 def _vote_case(kind, k):
-    """The world, the JAX vote of every path it has, and the port's
-    samples (checked equal to the JAX ones)."""
+    """The port's index, its vote arguments (the port's samples, checked
+    equal to the JAX ones), the JAX vote of every path the world has, and
+    the JAX index."""
     index, codes, quals, seg_len, bucket_ids, is_rc = _vote_world(kind, k)
     jfl = JaxFine(index)
     sh, si = jfl.prepare(codes, quals, seg_len)
@@ -143,14 +154,91 @@ def _vote_case(kind, k):
     np.testing.assert_array_equal(tsi.numpy(), si)
     targs = (torch.from_numpy(bucket_ids), torch.from_numpy(is_rc), tsh, tsi,
              torch.from_numpy(seg_len))
-    return tindex, targs, want
+    return tindex, targs, want, index
+
+
+def _fine_scan_matches(kind, k):
+    """fine_scan_plain through the lane interface, word for word, against
+    the JAX scan (_vote_impl, jitted, its _tally returning its arguments,
+    flipped and flattened as the tally does), the port's targets +
+    scan_occurrences + proposal_args on the gathered samples, and the
+    scan path's FineLocator.search_lanes. The lanes read the pairs'
+    samples in a shuffled order, then two reads of edge samples, then
+    eight padding lanes read lane 0 (read 0, forward, lane 0's bucket),
+    as the step's lanes past n_valid do."""
+    index, (bucket_ids, is_rc, sh, si, seg_len), want, jindex = \
+        _vote_case(kind, k)
+    S, p = sh.shape
+    bp = torch.from_numpy(np.asarray(index.buckets_packed).view(np.int32))
+    blen = torch.from_numpy(np.asarray(index.bucket_lengths).astype(np.int64))
+    # two more reads whose samples are the k-mers at the edges of the
+    # shortest and of a full bucket: the last one inside it (last - 2 ..
+    # last), the first ones past it (padding in the row), and its first
+    lb = bp.shape[1] * 16
+    edge_b = torch.tensor([int(blen.argmin()), int(blen.argmax())])
+    hashes = kmer_hashes(unpack_2bit(bp[edge_b], lb), k)
+    last = blen[edge_b, None] - k
+    at = (last + torch.arange(-2, p - 2)).clamp(0, lb - k)
+    at[:, -1] = 0
+    sh = torch.cat([sh, torch.gather(hashes, 1, at)])
+    si = torch.cat([si, torch.arange(p).repeat(2, 1)])
+    seg_len = torch.cat([seg_len, seg_len[:2]])
+    perm = torch.from_numpy(np.random.default_rng(60 + k).permutation(S))
+    lane_read = torch.cat([perm, torch.tensor([S, S + 1]),
+                           torch.zeros(8, dtype=torch.int64)])
+    vote_bucket = torch.cat([bucket_ids[perm].to(torch.int64), edge_b,
+                             bucket_ids[:1].to(torch.int64).repeat(8)])
+    lane_rc = torch.cat([is_rc[perm], torch.zeros(10, dtype=torch.bool)])
+    P, O = lane_read.shape[0], MAX_OCC
+    args = (bp, blen, vote_bucket, lane_rc, lane_read, sh, si, seg_len, k)
+    got = fine_scan_plain(*args)
+
+    jfl = JaxFine(_only(jindex, "scan"))
+    jfl._tally = lambda prop, valid, rc: (prop, valid)
+    rd = lane_read.numpy()
+    jprop, jvalid = (np.asarray(a) for a in jax.jit(jfl._vote_impl)(
+        jnp.asarray(jindex.buckets_packed), jnp.asarray(jindex.bucket_lengths),
+        jnp.asarray(vote_bucket.numpy().astype(np.int32)),
+        jnp.asarray(lane_rc.numpy()),
+        jnp.asarray(sh.numpy()[rd].astype(np.uint32)),
+        jnp.asarray(si.numpy()[rd].astype(np.int32)),
+        jnp.asarray(seg_len.numpy()[rd])))
+    rc3 = lane_rc.numpy()[:, None, None]
+    want_prop = np.where(rc3, jprop[:, ::-1], jprop).reshape(P, p * O)
+    want_valid = np.where(rc3, jvalid[:, ::-1], jvalid).reshape(P, p * O)
+    np.testing.assert_array_equal(got[0].numpy(), want_prop.astype(np.int32))
+    np.testing.assert_array_equal(got[1].numpy(),
+                                  want_valid.astype(np.int32))
+
+    tgt_hash, tgt_idx = targets(lane_rc, sh[lane_read], si[lane_read],
+                                seg_len[lane_read], k)
+    before = proposal_args(*scan_occurrences(bp, blen, vote_bucket, tgt_hash,
+                                             k), tgt_idx, lane_rc)
+    fl = FineLocator(index, "cpu", {
+        **fine_tables_from_numpy(host_fine_arrays(_only(index, "scan")),
+                                 "cpu"),
+        "locator_sample_tab": locator_sample_tab(index, "cpu")})
+    lanes = fl.search_lanes(vote_bucket, lane_rc, lane_read, sh, si, seg_len)
+    for a, b, c, d in zip(got, before, fine_scan(*args), lanes):
+        assert torch.equal(a, b) and torch.equal(a, c) and torch.equal(a, d)
+    # what the lanes cover: both strands, matches, a bucket's last k-mer
+    # found where it ends, and (tandem) samples with more than O
+    # occurrences
+    assert lane_rc.any() and (~lane_rc).any() and want_valid.any()
+    edge = got[0].view(P, p, O)[S:S + 2, 2] + si[S:S + 2, 2:3]
+    assert (edge == last).any()
+    if kind == "tandem":
+        assert want_valid.reshape(P, p, O).all(axis=2).any()
 
 
 @pytest.mark.parametrize("kind,k,path", [
     (kind, k, path) for k, paths in PATHS_AT.items()
-    for kind in ("random", "tandem") for path in paths])
+    for kind in ("random", "tandem") for path in paths + ("fine_scan",)])
 def test_vote_path_matches_jax(kind, k, path):
-    index, targs, want = _vote_case(kind, k)
+    if path == "fine_scan":
+        _fine_scan_matches(kind, k)
+        return
+    index, targs, want, _ = _vote_case(kind, k)
     if path == "tiled":
         fp, pt, steps, low_bits = build_fine_index_on_device(index, "cpu")
         tables = {"fine_packed": fp, "fine_ptab": pt, "search_steps": steps,
@@ -171,33 +259,67 @@ def test_vote_path_matches_jax(kind, k, path):
 STEP = dict(batch_size=64, vote_chunk=32)
 
 
+def _port_build(genome, cfg):
+    """The port's own index of a genome, as perfbench/core/port_index.py
+    builds it: the port's config and build_index alone, no fine tables."""
+    from bucketmap_tpu_torch.config import MapperConfig as PortConfig
+    from bucketmap_tpu_torch.index.builder import build_index as port_build
+    from bucketmap_tpu_torch.io.fasta import FastaRecord as PortRecord
+
+    return port_build([PortRecord(id=r.id, codes=r.codes) for r in genome],
+                      PortConfig(**dataclasses.asdict(cfg)))
+
+
+def _k14_world(read_len):
+    """k = 14 (2k-12 = 16 low bits) over 65,536-base buckets of a 200 kbp
+    repeat genome (two references, four buckets): a bucket's k-mer
+    positions overflow the packed slots' 16 position bits, as in
+    grch38f025. The JAX index and the port's own, checked equal."""
+    cfg = MapperConfig(bucket_len=65536, read_len=read_len, index_seed=9,
+                       query_seed=14, mapper_samples=8)
+    genome = repeat_genome(200_000, seed=23, n_refs=2)
+    index = build_index(genome, cfg)
+    port = _port_build(genome, cfg)
+    assert_same_index(port, index)
+    assert index.buckets_packed.shape[1] * 16 - 14 + 1 > 1 << 16
+    return cfg, genome, index, port
+
+
 @pytest.fixture(scope="module")
 def step_worlds():
     """The tiny world at k = 8 (host tables of every path), 15 (fine_pos
-    only, so the per-q-gram gate runs too) and 16 (no fine index), each
-    with one batch."""
+    only, so the per-q-gram gate runs too) and 16 (no fine index), and
+    _k14_world (no fine index, the port's own), each with one batch and
+    the port's index where it built its own."""
     out = {}
-    for k in (8, 15, 16):
-        cfg, index, sim = _tiny_world(query_seed=k)
-        if k <= 15:
+    for k in (8, 15, 16, 14):
+        port = None
+        if k == 14:
+            cfg, genome, index, port = _k14_world(100)
+            sim = ShortReadSimulator(cfg, substitution_rate=0.01, seed=24)
+            sim.read(genome)
+        else:
+            cfg, index, sim = _tiny_world(query_seed=k)
+        if k in (8, 15):
             build_fine_index(index, keep_unpacked=True)
         batch = _batch(sim, cfg, STEP["batch_size"])
         batch[2][-3:] = 0                       # padding rows
-        out[k] = (index, batch)
+        out[k] = (index, batch, port)
     return out
 
 
 @pytest.mark.parametrize("k,path", [(8, "packed"), (8, "prefix"),
                                     (8, "sorted"), (8, "scan"),
                                     (15, "sorted"), (15, "scan"),
-                                    (16, "scan")])
+                                    (16, "scan"), (14, "scan")])
 def test_step_vector_per_path_matches_jax(step_worlds, k, path):
-    index, batch = step_worlds[k]
+    index, batch, port = step_worlds[k]
     idx = _only(index, path)
     jm = JaxMapper(idx, **STEP)
     assert jm._vote_path == path
     want = np.asarray(jax.device_get(jm.step(*batch)))
-    dm = DeviceMapper(port_index(idx), "cpu", fine_build="host", **STEP)
+    dm = DeviceMapper(port or port_index(idx), "cpu", fine_build="host",
+                      **STEP)
     assert dm.vote_path == jm._vote_path
     got = dm.step(*batch).numpy()
     np.testing.assert_array_equal(got, want)
@@ -206,33 +328,41 @@ def test_step_vector_per_path_matches_jax(step_worlds, k, path):
 
 @pytest.fixture(scope="module")
 def long_k_world(tmp_path_factory):
+    """Per k: (JAX index, the port's own index or None, FASTQ of 120
+    reads)."""
     d = tmp_path_factory.mktemp("vote_paths_pipe")
     genome = repeat_genome(60_000, seed=21, n_refs=2)
-    sims = {}
-    for k in (15, 16):
-        cfg = MapperConfig(bucket_len=4096, read_len=150, index_seed=7,
-                           query_seed=k, mapper_samples=8)
+    worlds = {}
+    for k in (15, 16, 14):
+        port = None
+        if k == 14:
+            cfg, g, index, port = _k14_world(150)
+        else:
+            cfg, g = MapperConfig(bucket_len=4096, read_len=150, index_seed=7,
+                                  query_seed=k, mapper_samples=8), genome
+            index = build_index(g, cfg)
+        if k == 15:
+            build_fine_index(index)
+            assert index.fine_packed is None and index.fine_ptab is None
         sim = ShortReadSimulator(cfg, substitution_rate=0.01, seed=32 + k)
-        sim.read(genome)
-        sims[k] = (cfg, sim.generate(d, f"k{k}", 120)["fastq"])
-    return d, genome, sims
+        sim.read(g)
+        worlds[k] = (index, port, sim.generate(d, f"k{k}", 120)["fastq"])
+    return d, worlds
 
 
-@pytest.mark.parametrize("k,path", [(15, "sorted"), (16, "scan")])
+@pytest.mark.parametrize("k,path", [(15, "sorted"), (16, "scan"),
+                                    (14, "scan")])
 def test_pipeline_sam_matches_jax_at_long_k(long_k_world, k, path):
-    """k = 15 keeps only fine_pos (2k-12 = 18 low bits), k = 16 has no
-    fine index: both pipelines take the same path with their defaults."""
-    d, genome, sims = long_k_world
-    cfg, fastq = sims[k]
-    index = build_index(genome, cfg)
-    if k == 15:
-        build_fine_index(index)
-        assert index.fine_packed is None and index.fine_ptab is None
+    """k = 15 keeps only fine_pos (2k-12 = 18 low bits), k = 16 and the
+    k = 14 world have no fine index: both pipelines take the same path
+    with their defaults."""
+    d, worlds = long_k_world
+    index, port, fastq = worlds[k]
     jp = JaxPipeline(index, batch_size=64, pair_batch=32)
     assert jp.device._vote_path == path
     jp.map_fastq(fastq, d / f"jax{k}.sam")
-    pipe = BucketMapPipeline(port_index(index), device="cpu", batch_size=64,
-                             pair_batch=32)
+    pipe = BucketMapPipeline(port or port_index(index), device="cpu",
+                             batch_size=64, pair_batch=32)
     assert pipe.device.vote_path == path
     stats = pipe.map_fastq(fastq, d / f"torch{k}.sam")
     assert (d / f"torch{k}.sam").read_bytes() == (d / f"jax{k}.sam").read_bytes()
