@@ -5,8 +5,10 @@ here, so that none of it counts in the memory of the process that runs
 the program; this process imports nothing of the program.
 
 Driven over its standard input and output, one JSON object a line:
-  started with {"cache_dir", "config", "traffic", "seed", "seconds",
-    "fifos", "cores"} as its argument, it makes the inputs, keeps its
+  started with {"root", "cache_dir", "config", "traffic", "seed",
+    "seconds", "fifos", "cores"} as its argument, it makes the inputs
+    (the pool by the mix's draw, the state of the mix's reference: both
+    found by name under `root`'s perfbench/, core/spec.py), keeps its
     threads on `cores` from then on, sets aside the memory the window's
     SAM stream will fill, and says {"event": "ready", ...};
   {"cmd": "warm"}: writes the first warm_reads reads of the pool into
@@ -21,6 +23,7 @@ Driven over its standard input and output, one JSON object a line:
 from __future__ import annotations
 
 import collections
+import dataclasses
 import fcntl
 import json
 import os
@@ -34,7 +37,7 @@ import numpy as np  # noqa: E402
 
 from core import genome as genome_mod  # noqa: E402
 from core import reads as reads_mod  # noqa: E402
-from core.reference import Params, ReferenceIndex  # noqa: E402
+from core import spec as spec_mod  # noqa: E402
 
 _SLICE = 1 << 20
 _BLOCK = 4 << 20
@@ -46,6 +49,12 @@ SAM_BUFFER_BYTES = 4 << 30
 _FIELD_WIDTHS = (32, 4, 64, 12)
 TOLERANCE = 10
 MAX_INSTANCES = 1 << 26
+DEFAULT_DRAW = "short_reads"
+DEFAULT_REFERENCE = "align_free"
+# the program's cap on a chunk's FASTQ bytes (iter_fastq_batches'
+# bytes_per_batch, which map_fastq leaves at its default)
+CHUNK_BYTES = 128 << 20
+CONTEXT = ("ordinal", "chunk", "chunk_lengths", "chunk_width")
 
 
 def say(obj: dict) -> None:
@@ -252,22 +261,81 @@ def run_stream(pool: reads_mod.Pool, fq: str, sam: str, ref_names,
     return written, stream, feed_s
 
 
-def check(ref: ReferenceIndex, pool: reads_mod.Pool, stream: Stream,
-          written: int) -> dict:
+@dataclasses.dataclass(eq=False)
+class Instance:
+    """What the program's records of one written instance of a pool read
+    may depend on besides the read: its ordinal in the window's stream,
+    its chunk, and the lengths of the chunk's reads.
+
+    The program maps the stream in chunks of `run.reads_per_chunk` reads
+    (map_fastq's reader, iter_fastq_batches), cut by count: instance i is
+    in chunk i // reads_per_chunk, and the last chunk ends at the last
+    instance written. A chunk is also cut where its FASTQ bytes reach
+    CHUNK_BYTES; every record of a pool has one size, so that cap never
+    binds where reads_per_chunk records take CHUNK_BYTES or less, which
+    make_inputs holds every pool to."""
+
+    ordinal: int
+    chunk: int
+    chunk_lengths: np.ndarray     # the chunk's read lengths, in order
+
+    @property
+    def chunk_width(self) -> int:
+        """The chunk's longest read: the width of its ReadBatch."""
+        return int(self.chunk_lengths.max())
+
+
+class Chunks:
+    """The window's instances in their chunks."""
+
+    def __init__(self, pool: reads_mod.Pool, reads_per_chunk: int,
+                 written: int):
+        self.pool = pool
+        self.per = int(reads_per_chunk)
+        self.written = written
+        self._lengths: dict[int, np.ndarray] = {}
+
+    def instance(self, ordinal: int) -> Instance:
+        c = ordinal // self.per
+        lengths = self._lengths.get(c)
+        if lengths is None:
+            lo, hi = c * self.per, min((c + 1) * self.per, self.written)
+            lengths = self.pool.lengths[np.arange(lo, hi) % self.pool.n]
+            self._lengths[c] = lengths
+        return Instance(ordinal, c, lengths)
+
+
+def context_key(inst: Instance, depends) -> tuple:
+    """The values of `depends` for an instance: instances with one key
+    share an expectation."""
+    out = []
+    for f in depends:
+        v = getattr(inst, f)
+        out.append(v.tobytes() if isinstance(v, np.ndarray) else v)
+    return tuple(out)
+
+
+def check(ref, pool: reads_mod.Pool, stream: Stream, written: int,
+          reads_per_chunk: int) -> dict:
     """Every written instance of a sampled read against the reference's
-    records."""
+    records: one expectation per sampled read and distinct value of the
+    context the reference depends on, each instance held to its own."""
     n = pool.n
-    compared = differing = 0
+    chunks = Chunks(pool, reads_per_chunk, written)
+    compared = differing = expectations = 0
     shown: list[str] = []
     t0 = time.perf_counter()
     for j, i in enumerate(pool.sample.tolist()):
-        insts = range(i, written, n)
-        if not len(insts):
-            continue
-        want = ref.records(pool.sample_codes[j], pool.quality, b"\0")
-        for inst in insts:
+        want: dict[tuple, list] = {}
+        for inst in range(i, written, n):
+            ctx = chunks.instance(inst)
+            key = context_key(ctx, ref.depends)
+            if key not in want:
+                want[key] = ref.records(pool.sample_codes[j], pool.quality,
+                                        b"\0", ctx)
+                expectations += 1
             name = pool.name(i, inst)
-            exp = sorted(w.replace(b"\0", name, 1) for w in want)
+            exp = sorted(w.replace(b"\0", name, 1) for w in want[key])
             got = sorted(stream.kept.get(inst, []))
             compared += 1
             if exp != got:
@@ -276,20 +344,38 @@ def check(ref: ReferenceIndex, pool: reads_mod.Pool, stream: Stream,
                     shown.append(f"read {inst}: expected {exp[:2]!r}, "
                                  f"got {got[:2]!r}"[:600])
     return {"compared": compared, "differing": differing, "shown": shown,
+            "expectations": expectations,
             "seconds": time.perf_counter() - t0}
 
 
 def make_inputs(args: dict):
+    """(reference, pool, what it took): the configuration's genome, the
+    state of the mix's reference, and the pool of the mix's draw."""
     t0 = time.perf_counter()
-    cfg = args["config"]
+    cfg, traffic = args["config"], args["traffic"]
     genome, made_s = genome_mod.ensure(args["cache_dir"], cfg["genome"])
-    pr = Params(cfg["mapper"])
-    ref, built_s = ReferenceIndex.ensure(args["cache_dir"], pr, genome)
+    ref_name = traffic["check"].get("reference", DEFAULT_REFERENCE)
+    reference = spec_mod.module(args["root"], "references", ref_name)
+    ref, built_s = reference.ensure(
+        args["cache_dir"],
+        os.path.join(args["cache_dir"], "references", ref_name), cfg, genome)
+    bad = set(ref.depends) - set(CONTEXT)
+    if bad:
+        raise ValueError(f"reference {ref_name!r} depends on {sorted(bad)}; "
+                         f"an instance has only {CONTEXT}")
     t1 = time.perf_counter()
-    pool = reads_mod.draw(genome, ref.layout, pr.bucket_len,
-                          args["traffic"]["reads"], args["seed"],
-                          args["traffic"]["check"]["sample_reads"])
-    return ref, pool, {"genome_made_s": made_s, "reference_built_s": built_s,
+    draw_name = traffic["reads"].get("draw", DEFAULT_DRAW)
+    pool = spec_mod.module(args["root"], "draws", draw_name).draw(
+        genome, ref.layout, int(cfg["mapper"]["bucket_len"]),
+        traffic["reads"], args["seed"], traffic["check"]["sample_reads"])
+    per_chunk = int(traffic["run"]["reads_per_chunk"])
+    if per_chunk * pool.record > CHUNK_BYTES:
+        raise ValueError(
+            f"{per_chunk} reads of {pool.record} FASTQ bytes pass the "
+            f"program's {CHUNK_BYTES}-byte chunk: its chunks would not be "
+            f"cut by count; take fewer reads_per_chunk")
+    return ref, pool, {"draw": draw_name, "reference": ref_name,
+                       "genome_made_s": made_s, "reference_built_s": built_s,
                        "world_s": t1 - t0,
                        "pool_s": time.perf_counter() - t1,
                        "pool_reads": pool.n}
@@ -328,7 +414,8 @@ def main() -> int:
                  "correct": int(stream.correct[:written].sum()),
                  "feed_s": feed_s, "score_s": stream.score_s})
         elif cmd == "check":
-            out = check(ref, pool, stream, written)
+            out = check(ref, pool, stream, written,
+                        int(args["traffic"]["run"]["reads_per_chunk"]))
             out["event"] = "checked"
             say(out)
             break

@@ -23,12 +23,19 @@ mode and the check). A run:
    closes the stream; it reads every SAM record back and scores it
    against the truth; the window ends when `map_fastq` returns;
 5. frees the program's state, has the feeder compare the sampled reads'
-   records with the plain reference's (`core/reference.py`), and prints
-   the result as the last line of standard output.
+   records with the plain reference's (the mix's `check.reference`,
+   `perfbench/references/<name>.py`; `align_free` by default, which is
+   `core/reference.py`), and prints the result as the last line of
+   standard output.
 
 With `--trace 1` the window runs under torch.profiler with the stage
 hooks timed, and the per-layer metrics (`perfbench/metrics/<name>.py`)
-are printed instead of the end-to-end ones.
+are printed instead of the end-to-end ones. Each reader's `read(ctx)`
+gets the window's `MapStats` (`stats`), the reduced trace (`trace`),
+the stage clock (`clock`), the configuration's mapper settings and the
+mix's run settings, the set-up's times, and `program_counters`: the
+pipeline aligner's `counts` over the window (each number less its value
+when the window opened; None where the pipeline has no aligner).
 """
 
 from __future__ import annotations
@@ -146,6 +153,19 @@ def forbidden_modules(names=None) -> list[str]:
     return sorted({m.split(".")[0] for m in names} & set(FORBIDDEN))
 
 
+def aligner_counts(pipe) -> dict | None:
+    """A copy of the pipeline aligner's counts; None without an aligner."""
+    return None if pipe.aligner is None else dict(pipe.aligner.counts)
+
+
+def window_counts(before: dict | None, after: dict | None) -> dict | None:
+    """The counts over the window: each number less its value before."""
+    if after is None:
+        return None
+    return {k: v - before.get(k, 0) if isinstance(v, (int, float)) else v
+            for k, v in after.items()}
+
+
 def parse(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", required=True)
@@ -175,7 +195,8 @@ def main(argv=None, *, root: str | None = None) -> int:
              ("warm_fastq", "warm_sam", "fastq", "sam")}
     for p in fifos.values():
         os.mkfifo(p)
-    feeder = Feeder({"cache_dir": cell.cache_dir, "config": cell.config,
+    feeder = Feeder({"root": cell.root, "cache_dir": cell.cache_dir,
+                     "config": cell.config,
                      "traffic": cell.traffic, "seed": args.seed,
                      "seconds": args.seconds, "fifos": fifos,
                      "cores": feeder_cpus()})
@@ -229,6 +250,7 @@ def run(args, cell, feeder: Feeder, fifos: dict, torch) -> int:
         f"{tables_s:.3f} s; warm-up {warm['reads']} reads)")
 
     trace = clock = None
+    counts0 = aligner_counts(pipe)
     if args.trace:
         from core import trace as trace_mod
         from torch.profiler import ProfilerActivity, profile, record_function
@@ -256,6 +278,7 @@ def run(args, cell, feeder: Feeder, fifos: dict, torch) -> int:
     else:
         streamed = drive("window", "streamed", fifos["fastq"], fifos["sam"],
                          mapped)
+    counters = window_counts(counts0, aligner_counts(pipe))
     window_s = (mapped["t1"] - mapped["t0"]) / 1e9
     stats = mapped["stats"]
     peak = int(torch.cuda.max_memory_allocated()) if on_card else 0
@@ -303,7 +326,8 @@ def run(args, cell, feeder: Feeder, fifos: dict, torch) -> int:
                "run": run_cfg, "index_load_s": index_load_s,
                "tables_s": tables_s, "index_device_gib": index_device_gib,
                "occupancy_shape": occupancy_shape,
-               "window_s": window_s, "reads": stats.num_reads}
+               "window_s": window_s, "reads": stats.num_reads,
+               "program_counters": counters}
         for m in cell.per_layer:
             v = spec_mod.reader(cell.root, m["name"])(ctx)
             if v is not None:
@@ -326,7 +350,8 @@ def run(args, cell, feeder: Feeder, fifos: dict, torch) -> int:
     log(f"window {window_s:.3f} s, {written} reads (fed for "
         f"{streamed['feed_s']:.3f} s, SAM read back in "
         f"{streamed['score_s']:.3f} s), reference check "
-        f"{checked['seconds']:.1f} s, end-to-end {json.dumps(values)}")
+        f"{checked['seconds']:.1f} s ({checked['expectations']} "
+        f"expectations), end-to-end {json.dumps(values)}")
     result["checks"] = checks
     for name, c in checks.items():
         print(f"check {name}: {c['value']} (limit {c['limit']})",

@@ -32,7 +32,7 @@ def make_root(path: str) -> str:
     pb = os.path.join(path, "perfbench")
     os.makedirs(os.path.join(pb, "configs"))
     os.makedirs(os.path.join(pb, "traffic"))
-    for d in ("core", "metrics"):
+    for d in ("core", "metrics", "draws", "references"):
         os.symlink(os.path.join(PERFBENCH, d), os.path.join(pb, d))
     with open(os.path.join(REPO, "BENCHMARK.json")) as f:
         bench = json.load(f)

@@ -1,12 +1,12 @@
 """A CPU rehearsal of one run in a fresh process:
 
-    python rehearse.py <root> <fault or - or control> <arguments...>
+    python rehearse.py <root> <fault, probe, - or control> <arguments...>
 
 It skips the harness's look for a card and builds the program's
 pipeline on the CPU, where it runs its kernels' plain versions; a fault
-of faults.py is planted in the pipeline as it is built. With `control`,
-the arguments are control.py's, and the control runs in the program's
-place."""
+or a probe of faults.py is planted in the pipeline as it is built.
+With `control`, the arguments are control.py's, and the control runs in
+the program's place."""
 
 import os
 import sys
@@ -42,5 +42,6 @@ if __name__ == "__main__":
     if fault == "control":
         on_the_cpu()
         sys.exit(control.main(argv, root=root))
-    on_the_cpu(None if fault == "-" else faults.FAULTS[fault])
+    on_the_cpu(None if fault == "-"
+               else {**faults.FAULTS, **faults.PROBES}[fault])
     sys.exit(run.main(argv, root=root))

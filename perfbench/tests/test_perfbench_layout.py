@@ -9,7 +9,7 @@ import re
 import shutil
 
 from conftest import PERFBENCH, REPO
-from core import spec
+from core import feeder, spec
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -71,6 +71,11 @@ def test_every_cell_resolves_to_its_files():
         assert cell.per_layer
         for m in cell.per_layer:
             assert callable(spec.reader(REPO, m["name"]))
+        draw = cell.traffic["reads"].get("draw", feeder.DEFAULT_DRAW)
+        assert callable(spec.module(REPO, "draws", draw).draw)
+        reference = cell.traffic["check"].get("reference",
+                                              feeder.DEFAULT_REFERENCE)
+        assert callable(spec.module(REPO, "references", reference).ensure)
 
 
 def _digest(root):

@@ -13,11 +13,12 @@ import pytest
 
 from core import genome as G
 from core import reads as R
+from core import spec
 from core.feeder import Stream, check
 from core.reference import Params, ReferenceIndex
 
 import control
-from conftest import PERFBENCH, TINY
+from conftest import PERFBENCH, REPO, TINY
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -34,7 +35,8 @@ def mapped(request, tmp_path_factory):
     g = G.Genome([n for n, _ in recs], [len(c) for _, c in recs],
                  [G.pack_2bit(c) for _, c in recs])
     pr = Params(m)
-    ref = ReferenceIndex(pr, g, *ReferenceIndex.build_arrays(pr, g))
+    ref = spec.module(REPO, "references", "align_free").AlignFree(
+        ReferenceIndex(pr, g, *ReferenceIndex.build_arrays(pr, g)))
     traffic = {"pool": 2500, "read_len": 300, "substitution_rate": 0.002,
                "insertion_rate": 0.00025, "deletion_rate": 0.00025,
                "revcomp_share": 0.5, "quality": "E"}
@@ -47,7 +49,7 @@ def mapped(request, tmp_path_factory):
 
     index = build_index([FastaRecord(id=n, codes=c) for n, c in recs],
                         MapperConfig(**m))
-    assert np.array_equal(index.zeros[:-1], ref.zeros)
+    assert np.array_equal(index.zeros[:-1], ref.index.zeros)
     d = tmp_path_factory.mktemp("m")
     fq, sam = str(d / "r.fastq"), str(d / "o.sam")
     pool.buf.tofile(fq)
@@ -60,8 +62,11 @@ def test_reference_agrees_with_the_program(mapped):
     ref, pool, sam = mapped
     s = Stream(pool, ref.names)
     s.consume(sam)
-    out = check(ref, pool, s, pool.n)
-    assert out["compared"] == 400 and out["differing"] == 0, out["shown"]
+    out = check(ref, pool, s, pool.n, 1 << 17)
+    # the align-free reference depends on the read alone: one
+    # expectation a sampled read
+    assert out["compared"] == out["expectations"] == 400
+    assert out["differing"] == 0, out["shown"]
     assert s.correct[:pool.n].mean() > 0.95
 
 
@@ -81,7 +86,7 @@ def test_one_changed_record_is_caught(mapped, tmp_path):
     bad.write_bytes(b"\n".join(lines))
     s = Stream(pool, ref.names)
     s.consume(str(bad))
-    assert check(ref, pool, s, pool.n)["differing"] == 1
+    assert check(ref, pool, s, pool.n, 1 << 17)["differing"] == 1
 
 
 def test_control_fails_the_check(tiny_root):

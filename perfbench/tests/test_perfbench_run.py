@@ -53,11 +53,16 @@ def test_traced_line_has_breakdown(tiny_root):
     assert res["correct"] is True
     assert set(res["breakdown"]) == {"device_ops", "idle_gaps"}
     assert {"busy_s", "window_s"} <= set(res["device"])
-    # on the CPU only the host's metrics can be read; no device metric
-    # is reported from a CPU run
-    assert set(res["metrics"]) == {"pipeline.emit_s_per_mread",
-                                   "pipeline.dispatch_ms",
-                                   "setup.index_load_s", "setup.tables_s"}
+    # on the CPU only the host's metrics can be read (the harness's
+    # clock, the program's spans and counters); no device metric is
+    # reported from a CPU run
+    assert set(res["metrics"]) == {
+        "pipeline.emit_s_per_mread", "pipeline.dispatch_ms",
+        "setup.index_load_s", "setup.tables_s",
+        "pipeline.read_wait_s_per_mread", "pipeline.segment_s_per_mread",
+        "pipeline.writer_wait_s_per_mread", "pipeline.parse_s_per_mread",
+        "pipeline.merge_s_per_mread", "pipeline.sam_write_s_per_mread",
+        "pipeline.unstaged_pct", "pipeline.dispatch_cpu_pct"}
 
 
 @pytest.mark.parametrize("fault", ["half_batch_left_out", "answer_altered"])
