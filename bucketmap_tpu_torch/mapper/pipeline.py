@@ -117,6 +117,12 @@ class MapStats:
     dispatch_cpu_seconds: float = 0.0
     # the SAM writer's seconds: merge, format and write
     output_seconds: float = 0.0
+    # align mode: located pairs aligned, records dropped under the
+    # quality threshold, and records whose score is below -60 (MAPQ
+    # wrapped, CIGAR '*', never dropped)
+    aligned_pairs: int = 0
+    records_below_quality: int = 0
+    records_wrapped: int = 0
 
 
 class BucketMapPipeline:
@@ -133,10 +139,15 @@ class BucketMapPipeline:
     "decode", "extract" (the split retry of an overflowing batch, with
     its own dispatches, included) and "handoff" (the location chunk put
     on the SAM writer's queue), and once a batch "drain" (the wait for
-    the SAM writer to finish it). On the FASTQ reader thread "parse" (a
-    chunk's parse_fastq); on the SAM writer thread "merge" (the
-    align-free merge into sorted record arrays) and "sam_write" (writing
-    the formatted records)."""
+    the SAM writer to finish it). In align mode the batch's aligned emit
+    is "align" instead, once a batch, around the DP sub-batches (the
+    aligner's own stages), and inside it "handoff" (each sub-batch's
+    records put on the align-emit thread's queue) and "drain" (the wait
+    for that thread to finish the batch). On the FASTQ reader thread
+    "parse" (a chunk's parse_fastq); on the SAM writer thread "merge"
+    (the align-free merge into sorted record arrays) and "sam_write"
+    (writing the formatted records; the align-emit thread's writes
+    too)."""
 
     def __init__(self, index: BucketIndex, *, device, align: bool = False,
                  batch_size: int = 512, pair_batch: int = 256,
@@ -503,16 +514,17 @@ class BucketMapPipeline:
         cfg = self.cfg
         lr, lbk, loff, lvotes, lorig, lso = chunk
         if self.align:
-            long_mask = batch.lengths[lr] > 2 * cfg.read_len
-            if long_mask.any():
-                self._align_long_emit(
-                    writer, batch, lr[long_mask], lbk[long_mask],
-                    loff[long_mask], lorig[long_mask], lso[long_mask], qt,
-                    stats)
-            if not long_mask.all():
-                sm = ~long_mask
-                self._align_stream_emit(writer, batch, lr[sm], lbk[sm],
-                                        loff[sm], lorig[sm], qt, stats)
+            with self.stage("align"):
+                long_mask = batch.lengths[lr] > 2 * cfg.read_len
+                if long_mask.any():
+                    self._align_long_emit(
+                        writer, batch, lr[long_mask], lbk[long_mask],
+                        loff[long_mask], lorig[long_mask], lso[long_mask],
+                        qt, stats)
+                if not long_mask.all():
+                    sm = ~long_mask
+                    self._align_stream_emit(writer, batch, lr[sm], lbk[sm],
+                                            loff[sm], lorig[sm], qt, stats)
             return
         with self.stage("merge"):
             rec_read, rec_bucket, rec_off, rec_votes, rec_orig = \
@@ -626,6 +638,7 @@ class BucketMapPipeline:
         n = len(lr)
         if n == 0:
             return
+        stats.aligned_pairs += n
         lens = batch.lengths[lr].astype(np.int64)
         so = lso.astype(np.int64)
         sl = np.minimum(lens - so, rl).astype(np.int64)
@@ -702,6 +715,7 @@ class BucketMapPipeline:
                 rate = float(sc[valid].sum()) / max(1, cov)
                 mapq = max(0, min(60, 60 + int(np.floor(120.0 * rate))))
                 if mapq < qt:
+                    stats.records_below_quality += 1
                     continue
                 runs: list[tuple[int, int]] = []
                 first = valid[0]
@@ -789,7 +803,8 @@ class BucketMapPipeline:
         def emit(s, e, scores, begins, cbuf, coffs):
             mapq = 60 + scores.astype(np.int64)
             mapq = np.where(mapq < 0, mapq & 0xFF, mapq)
-            keep = np.where(scores < -60, True, mapq >= qt)
+            wrapped = scores < -60
+            keep = np.where(wrapped, True, mapq >= qt)
             kidx = np.nonzero(keep)[0]
             rec_read = lr[s:e][keep]
             rec_bucket = lbk[s:e][keep]
@@ -808,10 +823,14 @@ class BucketMapPipeline:
             else:
                 kbuf = b""
             stats.mapped_locations += len(rec_read)
+            stats.aligned_pairs += e - s
+            stats.records_wrapped += int(wrapped.sum())
+            stats.records_below_quality += e - s - len(kidx)
             if werr:
                 raise werr[0]
-            wq.put((rec_read, rec_flag, rec_bucket, rec_pos0, rec_mapq,
-                    (kbuf, koffs)))
+            with self.stage("handoff"):
+                wq.put((rec_read, rec_flag, rec_bucket, rec_pos0, rec_mapq,
+                        (kbuf, koffs)))
 
         lri = lr.astype(np.int32)
         # in a batch with long reads the code matrix is as wide as the
@@ -823,8 +842,9 @@ class BucketMapPipeline:
                 qc, batch.lengths[lri], lbk.astype(np.int32),
                 loff.astype(np.int32), ~lorig, emit)
         finally:
-            wq.put(None)
-            thr.join()
+            with self.stage("drain"):
+                wq.put(None)
+                thr.join()
         if werr:
             raise werr[0]
 

@@ -310,8 +310,16 @@ class BandedAligner:
         # device-RLE run budget per pair (shared across the sub-batch);
         # overflow falls back to the packed-ops path for that sub-batch
         self.run_cap_per_pair = 8
-        # DP sub-batches run, pairs aligned, overflow re-runs
-        self.counts = {"sub_batches": 0, "pairs": 0, "ops_reruns": 0}
+        # DP sub-batches run, pairs aligned, overflow re-runs; and, summed
+        # over the runs-path sub-batches, the shapes of their dp_runs
+        # launches: padded rows launched, rows the traceback can reach
+        # (min(qlen, Q) of the real pairs), launched rows times the text
+        # width, times Q and times the kept runs MR, and reachable rows
+        # times the band
+        self.counts = {"sub_batches": 0, "pairs": 0, "ops_reruns": 0,
+                       "dp_launched_rows": 0, "dp_rows": 0,
+                       "dp_row_text": 0, "dp_row_query": 0,
+                       "dp_row_runs": 0, "dp_row_band": 0}
         # entered around each part of a runs-mode sub-batch: "pad and
         # upload", "pack", "runs vector", "download", "consume" (a
         # profiler's StageClock, experiments/profile_align.py)
@@ -488,15 +496,26 @@ class BandedAligner:
         if mode == "runs":
             cpp = run_cap_per_pair or self.run_cap_per_pair
             run_cap = -(-cpp * pb // 2) * 2              # even
+            # the query width after packing, and its launch geometry
+            q = -(-qcodes.shape[1] // 16) * 16
+            band, lo = band_geometry(q, self.cfg.indel_rate)
+            row_cells = {"dp_launched_rows": 1, "dp_row_text": lo + q + band,
+                         "dp_row_query": q, "dp_row_runs": run_budget(band)[1]}
+        counts = self.counts
         stage = self.stage
         for s in range(0, n, pb):
             e = min(s + pb, n)
             with stage("pad and upload"):
                 qc, args = self._sub_batch(qcodes, qlen, bucket_ids, offsets,
                                            is_rc, width, s, e)
-            self.counts["sub_batches"] += 1
-            self.counts["pairs"] += e - s
+            counts["sub_batches"] += 1
+            counts["pairs"] += e - s
             if mode == "runs":
+                for k, v in row_cells.items():
+                    counts[k] += pb * v
+                rows = int(np.minimum(qlen[s:e], q).sum())
+                counts["dp_rows"] += rows
+                counts["dp_row_band"] += rows * band
                 with stage("pack"):
                     qp = upload_u32(pack_qcodes(qc), self.device)
                 with stage("runs vector"):
