@@ -73,8 +73,17 @@ def profile(pipe, batch, n_batches: int, out_dir: str, log=print) -> dict:
     sam_b = os.path.join(out_dir, "profile_driver_b.sam")
 
     clock = StageClock(dev, wait_on_enter=("download",))
+    # each step's result vector as downloaded: its length follows the
+    # step's output capacity (DeviceMapper.step_budgets)
+    vec_bytes = []
+    decode = pipe.device.decode_out
+    pipe.device.decode_out = lambda vec: (vec_bytes.append(vec.nbytes)
+                                          or decode(vec))
     t0 = time.perf_counter()
-    cycle(pipe, sub, sam_a, clock)
+    try:
+        cycle(pipe, sub, sam_a, clock)
+    finally:
+        pipe.device.decode_out = decode
     seq_s = time.perf_counter() - t0
     cycles = clock.calls["dispatch"]
     rows = [(name, clock.calls[name], clock.host[name],
@@ -83,12 +92,12 @@ def profile(pipe, batch, n_batches: int, out_dir: str, log=print) -> dict:
                        if name not in IN_EMIT)
     rows.append(("(the rest: padding, bookkeeping)", "", rest,
                  rest / max(1, cycles) * 1e3))
-    vec_bytes = 4 * (8 + B // pipe.device.Dd + 2 * pipe.device.out_cap)
     log(f"== sequential decomposition ({n} reads, {cycles} dispatch cycles "
         f"of {B}) ==")
     log(table(rows, ("stage", "calls", "seconds", "ms per cycle")))
-    log(f"device-to-host copy {vec_bytes / 1e6:.3f} MB a cycle, "
-        f"{vec_bytes * cycles / max(clock.host['download'], 1e-9) / 1e6:.0f}"
+    log(f"device-to-host copy {sum(vec_bytes) / max(1, cycles) / 1e6:.3f} MB"
+        f" a cycle, "
+        f"{sum(vec_bytes) / max(clock.host['download'], 1e-9) / 1e6:.0f}"
         f" MB/s; sequential {n / seq_s:,.0f} reads/s ({seq_s:.3f} s)")
 
     t0 = time.perf_counter()

@@ -12,7 +12,11 @@ for word the JAX step's:
 
 Where the JAX step skips vote chunks whose lanes are all padding with
 lax.cond, this step reads the valid-lane total to the host once per
-batch and votes only the live chunks; the results are the same.
+batch and votes only the live chunks; the results are the same. On one
+device that total also sizes the step: a batch with more valid lanes
+than the lane budget votes them all and returns a longer vector
+(DeviceMapper.step_budgets), where the JAX step drops them and its
+pipeline maps the batch again in halves.
 
 Mesh mode (mesh=parallel.sharding.make_mesh(...), one rank per shard):
 each rank maps its data shard's rows against its bucket shard's
@@ -334,38 +338,55 @@ class DeviceMapper:
 
     def _pick_out_cap(self, rows: int) -> int:
         """Accepted-lane budget per (shard-local) batch: ~1 location per
-        read on real genomes, so 2x rows; overflow re-dispatches the batch
-        split."""
+        read on real genomes, so 2x rows. The floor of step_budgets; an
+        overflow re-dispatches the batch split."""
         cap = min(self.lane_budget, max(4 * self.cfg.max_candidate_buckets,
                                         -(-2 * rows // 128) * 128))
         # votes are clipped to 8 bits in the packed lane (_init_pack_bits)
         assert self.cfg.locator_samples * MAX_OCC <= 255
         return cap
 
+    def step_budgets(self, n_valid: int) -> tuple[int, int]:
+        """(lane budget, output capacity) of a step with n_valid owned
+        lanes. The floors lane_budget and out_cap hold where the lanes fit
+        lane_budget, and always with a mesh, whose all_gather takes
+        vectors of one length from every rank (a batch that overflows
+        them is split: BucketMapPipeline._locate_split). On one device a
+        step with more valid lanes votes them all, in whole vote chunks,
+        and its output holds every one of them, since an accepted lane
+        is a valid lane: such a step cannot overflow."""
+        if self.mesh is not None or n_valid <= self.lane_budget:
+            return self.lane_budget, self.out_cap
+        ch = self.vote_chunk
+        return (-(-n_valid // ch) * ch,
+                max(self.out_cap, -(-n_valid // 128) * 128))
+
     # ------------------------------------------------------------------
     def _lanes(self, cand, own, codes, qual_ok, lengths, col0: int = 0,
                nown: int | None = None) -> dict:
         """Locator sampling and compaction of the owned (read, strand,
-        candidate) lanes into the lane budget by scatter-by-rank (owned
-        lanes first, in lane order; slot P is the drop slot, and slots
-        past the owned count read lane 0). The vote's bucket is the
-        candidate's row in this shard's tables, [col0, col0 + nown)."""
+        candidate) lanes into the step's lane budget P (step_budgets of
+        the owned count) by scatter-by-rank (owned lanes first, in lane
+        order; slot P is the drop slot, and slots past the owned count
+        read lane 0). The vote's bucket is the candidate's row in this
+        shard's tables, [col0, col0 + nown)."""
         C = self.cfg.max_candidate_buckets
-        P = self.lane_budget
         dev = self.device
         with self.stage("prepare"):
             samp_hash, samp_idx = self.fine.prepare(codes, qual_ok, lengths)
         with self.stage("compact"):
             flat = cand.reshape(-1)
+            owned = own.reshape(-1)
+            rank = torch.cumsum(owned.to(torch.int64), dim=0)
+            n_valid = int(rank[-1])       # the step's one host sync
+            P = self.step_budgets(n_valid)[0]
             lane = torch.arange(flat.shape[0], dtype=torch.int64, device=dev)
-            rank = torch.cumsum(own.reshape(-1).to(torch.int64), dim=0)
-            dst = torch.where(own.reshape(-1) & (rank - 1 < P), rank - 1, P)
+            dst = torch.where(owned & (rank - 1 < P), rank - 1, P)
             sel = torch.zeros(P + 1, dtype=torch.int64, device=dev)
             sel = sel.scatter(0, dst, lane)[:P]
             bucket = flat[sel].clamp(min=0).to(torch.int64)
             vote_bucket = bucket if nown is None else \
                 (bucket - col0).clamp(0, nown - 1)
-            n_valid = int(rank[-1])       # the step's one host sync
         return {
             "sel": sel, "n_valid": n_valid,
             "lane_read": sel // (2 * C), "lane_rc": ((sel // C) % 2).bool(),
@@ -452,10 +473,10 @@ class DeviceMapper:
                        di: int = 0) -> torch.Tensor:
         """Vote the live chunks (first lane below the owned count; dead
         chunks read zeros, as the JAX step's cond does) and pack."""
-        P = self.lane_budget
         ch = self.vote_chunk
         dev = self.device
         nv = lanes["n_valid"]
+        P, OC = self.step_budgets(nv)
         off = torch.zeros(P, dtype=torch.int32, device=dev)
         votes = torch.zeros(P, dtype=torch.int32, device=dev)
         acc = torch.zeros(P, dtype=torch.int32, device=dev)
@@ -469,7 +490,7 @@ class DeviceMapper:
             acc = acc.bool() & (torch.arange(P, device=dev) < nv)
             return self._pack_result(acc, lanes["sel"], lanes["lane_bucket"],
                                      off, votes, total_valid, nv,
-                                     lanes["counts"], di)
+                                     lanes["counts"], OC, di)
 
     def step_packed(self, packed: torch.Tensor) -> torch.Tensor:
         """packed: (B, cw+qw+1) packed reads on the device, with a mesh this
@@ -496,15 +517,16 @@ class DeviceMapper:
         return self._vote_and_pack(lanes, int(total), self.mesh.di)
 
     def _pack_result(self, acc, sel, bucket, off, votes, total_valid: int,
-                     local_valid: int, counts, di: int = 0) -> torch.Tensor:
-        """One int32 vector, the inverse of decode_out:
-          [0]=n_accept [1]=total_valid [2]=local_valid [3]=out_cap
+                     local_valid: int, counts, OC: int,
+                     di: int = 0) -> torch.Tensor:
+        """One int32 vector of output capacity OC, the inverse of
+        decode_out:
+          [0]=n_accept [1]=total_valid [2]=local_valid [3]=OC
           [4]=data-shard index [5:8]=0
           [8 : 8+B]          counts (B, 2) as c0 << 16 | c1
-          [8+B : 8+B+2*cap]  accepted lanes, 2 words each (_init_pack_bits)
+          [8+B : 8+B+2*OC]   accepted lanes, 2 words each (_init_pack_bits)
         Slots past n_accept repeat lane 0, as in the JAX step."""
         P = acc.shape[0]
-        OC = self.out_cap
         dev = acc.device
         la, ob = self._lane_bits, self._off_bits
         arank = torch.cumsum(acc.to(torch.int64), dim=0)
@@ -530,7 +552,9 @@ class DeviceMapper:
         step, concatenated in (data, bucket) order (one for a single
         device): accepted lanes (lane_read as a row of the whole batch,
         lane_rc, lane_bucket, offset, votes), counts (B, 2), total_valid,
-        and local_valid and n_accept per shard."""
+        and local_valid, n_accept and the output capacity out_cap per
+        shard. Each vector's length follows its own capacity, header
+        word [3]."""
         if isinstance(vec, torch.Tensor):
             vec = vec.cpu().numpy()
         vec = np.ascontiguousarray(vec, dtype=np.int32)
@@ -539,25 +563,30 @@ class DeviceMapper:
         Bl = B // Dd
         C = self.cfg.max_candidate_buckets
         la, ob = self._lane_bits, self._off_bits
-        vl = 8 + Bl + 2 * self.out_cap
-        assert vec.shape[0] == Dd * Db * vl, (vec.shape, Dd, Db, vl)
         counts = np.zeros((B, 2), np.int32)
         cols = {k: [] for k in ("lane_read", "lane_rc", "lane_bucket",
                                 "offset", "votes")}
         n_accept = np.zeros(Dd * Db, np.int32)
         local_valid = np.zeros(Dd * Db, np.int32)
+        out_cap = np.zeros(Dd * Db, np.int32)
         total_valid = 0
+        start = 0
         for d in range(Dd * Db):
-            v = vec[d * vl:(d + 1) * vl]
+            cap = int(vec[start + 3]) if start + 8 <= vec.shape[0] else -1
+            end = start + 8 + Bl + 2 * cap
+            if cap < 0 or end > vec.shape[0]:
+                raise ValueError(f"vector {d} of {Dd * Db} runs past the "
+                                 f"{vec.shape[0]} words given")
+            v, start = vec[start:end], end
             di, bi = divmod(d, Db)
             na, total_valid, lv = int(v[0]), int(v[1]), int(v[2])
-            n_accept[d], local_valid[d] = na, lv
+            n_accept[d], local_valid[d], out_cap[d] = na, lv, cap
             if bi == 0:  # counts are the same on every bucket shard
                 cw = v[8: 8 + Bl].view(np.uint32)
                 counts[di * Bl:(di + 1) * Bl, 0] = cw >> 16
                 counts[di * Bl:(di + 1) * Bl, 1] = cw & 0xFFFF
-            out2 = v[8 + Bl:].view(np.uint32).reshape(self.out_cap, 2)
-            out2 = out2[: min(na, self.out_cap)]
+            out2 = v[8 + Bl:].view(np.uint32).reshape(cap, 2)
+            out2 = out2[: min(na, cap)]
             w0, w1 = out2[:, 0], out2[:, 1]
             lane = (w0 & np.uint32((1 << la) - 1)).astype(np.int64)
             cols["lane_read"].append(di * Bl + lane // (2 * C))
@@ -569,9 +598,13 @@ class DeviceMapper:
                                   .astype(np.int64))
             cols["votes"].append(((w0 >> np.uint32(la)) & np.uint32(0xFF))
                                  .astype(np.int64))
+        if start != vec.shape[0]:
+            raise ValueError(f"{Dd * Db} vectors take {start} words, not "
+                             f"{vec.shape[0]}")
         out = {k: np.concatenate(v) for k, v in cols.items()}
         out.update(counts=counts, total_valid=total_valid,
-                   local_valid=local_valid, n_accept=n_accept)
+                   local_valid=local_valid, n_accept=n_accept,
+                   out_cap=out_cap)
         return out
 
     # ------------------------------------------------------------------

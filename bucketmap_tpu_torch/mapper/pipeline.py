@@ -123,6 +123,13 @@ class MapStats:
     aligned_pairs: int = 0
     records_below_quality: int = 0
     records_wrapped: int = 0
+    # device steps dispatched; of them, single-device steps whose valid
+    # lanes exceeded the lane budget, so that they voted past it
+    # (DeviceMapper.step_budgets), and steps run by the split retry of an
+    # overflowing batch (_locate_split)
+    steps: int = 0
+    grown_steps: int = 0
+    split_steps: int = 0
 
 
 class BucketMapPipeline:
@@ -317,8 +324,11 @@ class BucketMapPipeline:
         return per_read, stats
 
     def _overflow(self, host) -> bool:
-        return (int(host["local_valid"].max()) > self.device.lane_budget
-                or int(host["n_accept"].max()) > self.device.out_cap)
+        """Whether a decoded step dropped lanes: valid lanes past its lane
+        budget or accepted lanes past its output capacity."""
+        lv = int(host["local_valid"].max())
+        return (lv > self.device.step_budgets(lv)[0]
+                or bool((host["n_accept"] > host["out_cap"]).any()))
 
     def _run(self, stats, codes, quals, seg_len, s, e) -> dict:
         """Pad segment rows [s, e) to the batch size, run the step and
@@ -337,7 +347,12 @@ class BucketMapPipeline:
         with self.stage("download"):
             vec = vec.cpu().numpy()
         with self.stage("decode"):
-            return self.device.decode_out(vec)
+            host = self.device.decode_out(vec)
+        dm = self.device
+        stats.steps += 1
+        stats.grown_steps += int(dm.step_budgets(
+            int(host["local_valid"].max()))[0] > dm.lane_budget)
+        return host
 
     def _extract_chunk(self, host, s, e, batch, seg_read, seg_off, seg_len):
         """Accepted lanes of one decoded step -> location arrays in read
@@ -356,8 +371,10 @@ class BucketMapPipeline:
 
     def _locate_split(self, stats, batch, seg_read, seg_off, seg_len, codes,
                       quals, s, e):
-        """Overflow fallback: re-run [s, e) as two halves (a single row can
-        never overflow: lane_budget >= 2 * max_candidate_buckets)."""
+        """Overflow fallback, where a step's budgets are fixed (a mesh, or
+        accepted lanes past out_cap on one device): re-run [s, e) as two
+        halves (a single row can never overflow: lane_budget >= 2 *
+        max_candidate_buckets)."""
         mid = (s + e) // 2
         parts = ((s, mid), (mid, e)) if e - s > 1 else ((s, e),)
         chunks = []
@@ -365,6 +382,7 @@ class BucketMapPipeline:
             if a == b:
                 continue
             host = self._run(stats, codes, quals, seg_len, a, b)
+            stats.split_steps += 1
             if self._overflow(host) and b - a > 1:
                 chunks.extend(self._locate_split(stats, batch, seg_read,
                                                  seg_off, seg_len, codes,

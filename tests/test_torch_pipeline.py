@@ -51,8 +51,13 @@ def world(tmp_path_factory):
 def test_sam_matches_jax_pipeline(world, monkeypatch, ppr):
     d, index, fastq = world
     monkeypatch.setenv("BMTPU_DEVICE_FINE", "1")
-    JaxPipeline(index, batch_size=128, pair_batch=64,
-                pairs_per_read=ppr).map_fastq(fastq, d / f"jax{ppr}.sam")
+    jp = JaxPipeline(index, batch_size=128, pair_batch=64,
+                     pairs_per_read=ppr)
+    jax_splits = []
+    jsplit = jp._locate_split
+    monkeypatch.setattr(jp, "_locate_split",
+                        lambda *a: jax_splits.append(1) or jsplit(*a))
+    jp.map_fastq(fastq, d / f"jax{ppr}.sam")
     pipe = BucketMapPipeline(port_index(index), device="cpu", batch_size=128,
                              pair_batch=64, pairs_per_read=ppr)
     splits = []
@@ -63,8 +68,12 @@ def test_sam_matches_jax_pipeline(world, monkeypatch, ppr):
     want = (d / f"jax{ppr}.sam").read_bytes()
     assert (d / f"torch{ppr}.sam").read_bytes() == want
     assert stats.num_reads == 303 and stats.mapped_locations > 300
-    # pairs_per_read=1 overflows the lane budget: the split retry ran
-    assert bool(splits) == (ppr == 1)
+    # pairs_per_read=1 overflows the lane budget, where the JAX pipeline
+    # splits the batch; the port's step grows past its budget instead
+    assert bool(jax_splits) == (ppr == 1)
+    assert not splits and stats.split_steps == 0
+    assert stats.steps == 3
+    assert (stats.grown_steps > 0) == (ppr == 1)
 
 
 @pytest.mark.parametrize("qt", [None, 0])

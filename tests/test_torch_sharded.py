@@ -161,6 +161,9 @@ def _rank_work(rank, out_dir, data, bucket) -> dict:
         dm.coarse.presence = lambda *a: staged.append(1) or presence(*a)
         out[f"vec_{path}"] = dm.step(codes[:B], quals[:B],
                                      lengths[:B]).numpy()
+        # a mesh step keeps its floors however many lanes are valid
+        out[f"budgets_{path}"] = (dm.step_budgets(4 * dm.lane_budget)
+                                  + (dm.lane_budget, dm.out_cap))
         out[f"staged_{path}"] = len(staged)
         for kind in ("split", "align"):
             bs, ppr, align, n = _pipe_args(kind)
@@ -172,9 +175,11 @@ def _rank_work(rank, out_dir, data, bucket) -> dict:
             split = pipe._locate_split
             pipe._locate_split = lambda *a: splits.append(1) or split(*a)
             sam = os.path.join(out_dir, f"{kind}_{path}.sam")
-            pipe.map_reads(_read_batch(codes, quals, lengths, n, port=True),
-                           sam)
+            stats = pipe.map_reads(_read_batch(codes, quals, lengths, n,
+                                               port=True), sam)
             out[f"splits_{kind}_{path}"] = len(splits)
+            out[f"steps_{kind}_{path}"] = (stats.steps, stats.grown_steps,
+                                           stats.split_steps)
             out[f"aligner_{kind}_{path}"] = pipe.aligner is not None
     out["qgram"] = tables["qgram_words"].numpy()
     for vote in HOST_VOTES:
@@ -302,6 +307,22 @@ def test_mesh_pipeline_sam_matches_jax(mesh_run, jax_side, kind, path):
     assert (splits.pop() > 0) == (kind == "split" and bucket == 4)
     assert [bool(out[f"aligner_{kind}_{path}"]) for out in outs] == \
         [kind == "align", False, False, False]
+
+
+@pytest.mark.parametrize("path", PATHS)
+def test_mesh_keeps_fixed_budgets(mesh_run, path):
+    """A mesh step keeps its fixed lane budget and output capacity (its
+    all_gather takes vectors of one length from every rank): on the
+    (1, 4) mesh one pair per read overflows the budget and the batch is
+    split, on every rank alike, and no step grows."""
+    _, bucket, _, outs = mesh_run
+    for rank, out in enumerate(outs):
+        lanes, cap, floor_lanes, floor_cap = (int(x) for x in
+                                              out[f"budgets_{path}"])
+        assert (lanes, cap) == (floor_lanes, floor_cap), rank
+        steps, grown, split = (int(x) for x in out[f"steps_split_{path}"])
+        assert grown == 0 and (split > 0) == (bucket == 4), rank
+        assert steps == -(-N_READS // _pipe_args("split")[0]) + split, rank
 
 
 @pytest.mark.parametrize("n", range(1, 9))

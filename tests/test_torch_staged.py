@@ -128,7 +128,10 @@ def test_staged_query_matches_fused_and_jax(repeats):
 @pytest.mark.parametrize("ppr", [4, 1])
 def test_staged_step_vector_matches_jax(monkeypatch, ppr):
     """The single-device step through the staged branch, with a lane budget
-    that holds (4 pairs per read) and one that overflows (1)."""
+    that holds (4 pairs per read): the JAX step's vector word for word;
+    and one that overflows (1), which the JAX step truncates and the
+    port's step grows past: its decoded vector is the JAX step's at 4
+    pairs per read, which holds every lane."""
     monkeypatch.setenv("BMTPU_DEVICE_FINE", "1")
     cfg, index, sim = _tiny_world(repeats=True)
     B = 64
@@ -139,5 +142,17 @@ def test_staged_step_vector_matches_jax(monkeypatch, ppr):
     dm = DeviceMapper(port_index(index), "cpu", batch_size=B,
                       pairs_per_read=ppr, vote_chunk=32, coarse_path="staged")
     got = dm.step(codes, quals, lengths).numpy()
-    np.testing.assert_array_equal(got, want)
+    if ppr == 1:
+        assert want[1] > jm.lane_budget       # the JAX step overflowed
+        jm = JaxMapper(index, batch_size=B, pairs_per_read=4, vote_chunk=32)
+        want = np.asarray(jax.device_get(jm.step(codes, quals, lengths)))
+        assert want[1] <= jm.lane_budget and want[0] <= jm.out_cap
+        host, jhost = dm.decode_out(got), jm.decode_out(want)
+        for key in ("lane_read", "lane_rc", "lane_bucket", "offset",
+                    "votes", "counts", "local_valid", "n_accept"):
+            np.testing.assert_array_equal(host[key], jhost[key],
+                                          err_msg=key)
+        assert host["total_valid"] == jhost["total_valid"]
+    else:
+        np.testing.assert_array_equal(got, want)
     assert want[0] > 0

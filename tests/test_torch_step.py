@@ -59,19 +59,51 @@ def world(request):
 @pytest.mark.parametrize("tables", ["own_build", "from_jax"])
 @pytest.mark.parametrize("ppr", [4, 1])
 def test_step_vector_matches_jax(world, tables, ppr):
+    """At 4 pairs per read the vectors are equal word for word. At 1 the
+    JAX step overflows its lane budget and drops lanes (its pipeline then
+    maps the batch again in halves); the port's step grows past its
+    budget and holds every lane, so its decoded vector equals that of
+    the JAX step at 4 pairs per read, which holds them all."""
     index, batch, out = world
     jm, want = out[ppr]
     tabs = None if tables == "own_build" else \
         tables_from_numpy(_jax_tables(jm), "cpu")
     dm = DeviceMapper(index, "cpu", pairs_per_read=ppr, tables=tabs, **STEP)
     got = dm.step(*batch).numpy()
-    assert got.dtype == np.int32 and got.shape == want.shape
-    np.testing.assert_array_equal(got, want)
+    assert got.dtype == np.int32
     assert want[0] > 0                        # some lanes were accepted
     if ppr == 1:
-        assert want[1] > dm.lane_budget       # the lane budget overflowed
+        assert want[1] > jm.lane_budget       # the JAX step overflowed
+        jm, want = out[4]
+        assert want[1] <= jm.lane_budget and want[0] <= jm.out_cap
+        assert got[2] > dm.lane_budget and got[3] > dm.out_cap   # grown
+    else:
+        np.testing.assert_array_equal(got, want)
     host, jhost = dm.decode_out(got), jm.decode_out(want)
     for key in ("lane_read", "lane_rc", "lane_bucket", "offset", "votes",
                 "counts", "local_valid", "n_accept"):
         np.testing.assert_array_equal(host[key], jhost[key], err_msg=key)
     assert host["total_valid"] == jhost["total_valid"]
+
+
+def test_decode_reads_a_grown_capacity(world):
+    """decode_out reads each vector's output capacity from its header: a
+    vector whose capacity is above out_cap, its slots past n_accept
+    padding, decodes to the lanes of the vector it was made from."""
+    index, batch, _ = world
+    dm = DeviceMapper(index, "cpu", pairs_per_read=4, **STEP)
+    vec = dm.step(*batch).numpy()
+    assert vec[3] == dm.out_cap and len(vec) == 8 + B + 2 * dm.out_cap
+    cap = dm.out_cap + 128
+    grown = np.concatenate([vec, np.full(2 * 128, -1, np.int32)])
+    grown[3] = cap
+    host, want = dm.decode_out(grown), dm.decode_out(vec)
+    assert list(host["out_cap"]) == [cap] and list(want["out_cap"]) == \
+        [dm.out_cap]
+    for key in ("lane_read", "lane_rc", "lane_bucket", "offset", "votes",
+                "counts", "local_valid", "n_accept"):
+        np.testing.assert_array_equal(host[key], want[key], err_msg=key)
+    assert len(host["lane_read"]) == vec[0] > 0
+    for cut in (grown[:-2], np.concatenate([grown, vec[:1]])):
+        with pytest.raises(ValueError):
+            dm.decode_out(cut)

@@ -76,8 +76,8 @@ def world(tmp_path_factory):
 @pytest.fixture(scope="module", params=[4, 1], ids=["ppr4", "ppr1"])
 def traced(world, request):
     """map_fastq with the recording hook and without one; with one pair
-    a read the lane budget overflows, so the split retry runs its own
-    dispatches inside "extract"."""
+    a read the lane budget overflows, so the steps grow past it (one
+    device takes no split retry)."""
     d, index, fastq = world
     ppr = request.param
     pipe = BucketMapPipeline(index, device="cpu", batch_size=BATCH,
@@ -114,8 +114,11 @@ def test_spans_once_a_batch_or_a_chunk(traced):
     assert chunks >= batches
     assert n["handoff"] == n["merge"] == n["sam_write"] == chunks
     assert n["dispatch"] == n["download"] == n["decode"]
-    # the split retry re-runs an overflowing chunk inside its extract
-    assert (n["dispatch"] > chunks) == (traced["ppr"] == 1)
+    # one step a chunk: an overflowing chunk's step grows past its lane
+    # budget, where the split retry re-ran it inside its extract
+    assert n["dispatch"] == chunks == traced["stats"].steps
+    assert (traced["stats"].grown_steps > 0) == (traced["ppr"] == 1)
+    assert traced["stats"].split_steps == 0
     assert sum(n.values()) < READS / 5
 
 
@@ -132,8 +135,9 @@ def test_main_thread_spans_only_nest(traced):
             assert t1 <= stack[-1][1], (name, "overlaps", stack[-1][2])
             nested += 1
         stack.append((t0, t1, name))
-    # only the split retry's dispatch cycles sit inside another span
-    assert (nested > 0) == (traced["ppr"] == 1)
+    # no span sits inside another: only the split retry's dispatch
+    # cycles did, and one device no longer takes it
+    assert nested == 0
 
 
 def test_sam_equal_with_and_without_the_hook(traced):
