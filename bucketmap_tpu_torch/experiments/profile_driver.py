@@ -29,26 +29,25 @@ from bucketmap_tpu_torch.mapper.device_pipeline import no_stage
 
 STAGES = ("segment", "dispatch", "download wait", "download", "decode",
           "extract", "emit", "merge", "sam_write")
-# stages entered inside "emit" (BucketMapPipeline._emit_locations)
+# stages entered inside "emit" (BucketMapPipeline._merge_emit)
 IN_EMIT = ("merge", "sam_write")
 
 
 def cycle(pipe, batch, sam_path, stage=no_stage):
     """Map `batch` into sam_path cycle by cycle on this thread:
     pipe.locate_chunks with `stage` as the pipeline's hook, each location
-    chunk's records written by pipe._emit_locations inside an "emit"
+    chunk's records written by pipe._merge_emit inside an "emit"
     stage, in order, as map_reads' writer thread writes them. Returns the
     MapStats."""
     from bucketmap_tpu_torch.mapper.pipeline import MapStats
 
     stats = MapStats()
     writer = pipe._writer(sam_path)
-    qt = pipe._threshold(None)
     prev, pipe.stage = pipe.stage, stage
     try:
         for chunk in pipe.locate_chunks(batch, stats):
             with stage("emit"):
-                pipe._emit_locations(writer, batch, chunk, qt, stats)
+                pipe._merge_emit(writer, batch, chunk, stats)
     finally:
         pipe.stage = prev
         writer.close()

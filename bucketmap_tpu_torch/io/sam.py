@@ -34,6 +34,12 @@ class SamWriter:
         self._f.write(
             f"{qname}\t{flag}\t{rname}\t{pos0 + 1}\t{mapq}\t{cigar}\t*\t0\t0\t{seq}\t{qual}\n")
 
+    def write_bytes(self, records: bytes) -> None:
+        """Append pre-formatted record lines (the native formatter's)
+        after every line written so far."""
+        self._f.flush()
+        self._f.buffer.write(records)
+
     def close(self) -> None:
         self._f.close()
 

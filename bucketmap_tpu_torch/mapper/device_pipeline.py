@@ -554,7 +554,11 @@ class DeviceMapper:
         lane_rc, lane_bucket, offset, votes), counts (B, 2), total_valid,
         and local_valid, n_accept and the output capacity out_cap per
         shard. Each vector's length follows its own capacity, header
-        word [3]."""
+        word [3]. Two flags come from the budgets the step used
+        (step_budgets): "overflow", where it dropped lanes (valid lanes
+        past a mesh's lane budget, or accepted lanes past a vector's
+        output capacity), and "grown", where one device voted past
+        lane_budget."""
         if isinstance(vec, torch.Tensor):
             vec = vec.cpu().numpy()
         vec = np.ascontiguousarray(vec, dtype=np.int32)
@@ -601,10 +605,14 @@ class DeviceMapper:
         if start != vec.shape[0]:
             raise ValueError(f"{Dd * Db} vectors take {start} words, not "
                              f"{vec.shape[0]}")
+        lv = int(local_valid.max())
+        P = self.step_budgets(lv)[0]
         out = {k: np.concatenate(v) for k, v in cols.items()}
         out.update(counts=counts, total_valid=total_valid,
                    local_valid=local_valid, n_accept=n_accept,
-                   out_cap=out_cap)
+                   out_cap=out_cap,
+                   overflow=lv > P or bool((n_accept > out_cap).any()),
+                   grown=P > self.lane_budget)
         return out
 
     # ------------------------------------------------------------------

@@ -6,8 +6,8 @@ num_segment_samples windows), mapped in fixed-size batches through the
 device step and decoded on the host. Align-free, the locations are
 merged per read (filter_best_locations semantics); in align mode every
 location goes through the banded aligner, which gives the CIGAR and the
-MAPQ. Records are written as SAM through the JAX package's SamWriter and
-native formatter, so the bytes match the reference's.
+MAPQ. Records are written as SAM through the port's SamWriter and native
+formatter, so the bytes match the reference's.
 
 With a mesh (parallel.sharding.make_mesh), every rank parses the same
 reads and runs the same batches through the mesh step; the result
@@ -99,6 +99,52 @@ def default_pair_batch(index: BucketIndex, device, batch_size: int,
     return 1024 if scan else 16384 if align else batch_size
 
 
+class _WriterThread:
+    """A named thread that does one batch's jobs in order, fed through a
+    4-deep queue: the align-free SAM writer and the align-emit thread.
+    Used as a context manager around one batch. Each put is one
+    "handoff" span on the caller, and the batch's end (the sentinel and
+    the join) one "drain". After a failed job the thread takes the rest
+    up to the sentinel and drops them, so a put never blocks; the next
+    put, or the batch's end, re-raises the failure on the caller."""
+
+    def __init__(self, name: str, work, stage):
+        self._q: queue.Queue = queue.Queue(maxsize=4)
+        self._work = work
+        self._stage = stage
+        self._failure: BaseException | None = None
+        self._thr = threading.Thread(target=self._loop, name=name)
+
+    def _loop(self):
+        while True:
+            job = self._q.get()
+            if job is None:
+                return
+            if self._failure is None:
+                try:
+                    self._work(job)
+                except BaseException as e:  # re-raised on the caller
+                    self._failure = e
+
+    def put(self, job) -> None:
+        if self._failure is not None:
+            raise self._failure
+        with self._stage("handoff"):
+            self._q.put(job)
+
+    def __enter__(self) -> "_WriterThread":
+        self._thr.start()
+        return self
+
+    def __exit__(self, exc_type, *_):
+        with self._stage("drain"):
+            self._q.put(None)
+            self._thr.join()
+        # where the caller raised, its own error goes on
+        if exc_type is None and self._failure is not None:
+            raise self._failure
+
+
 @dataclasses.dataclass
 class MapStats:
     num_reads: int = 0
@@ -115,7 +161,8 @@ class MapStats:
     # rest of that stage's wall time is spent off the CPU, waiting for the
     # interpreter lock or blocked in a CUDA call
     dispatch_cpu_seconds: float = 0.0
-    # the SAM writer's seconds: merge, format and write
+    # align-free, the SAM writer thread's seconds (merge, format and
+    # write); in align mode, the main thread's align stage
     output_seconds: float = 0.0
     # align mode: located pairs aligned, records dropped under the
     # quality threshold, and records whose score is below -60 (MAPQ
@@ -125,7 +172,7 @@ class MapStats:
     records_wrapped: int = 0
     # device steps dispatched; of them, single-device steps whose valid
     # lanes exceeded the lane budget, so that they voted past it
-    # (DeviceMapper.step_budgets), and steps run by the split retry of an
+    # (decode_out's "grown"), and steps run by the split retry of an
     # overflowing batch (_locate_split)
     steps: int = 0
     grown_steps: int = 0
@@ -184,6 +231,11 @@ class BucketMapPipeline:
                                    fine_max_gb=fine_max_gb,
                                    buckets_packed=genome)
         self._bucket_sam_offset = index.ref_offset_of_bucket()
+        # the native formatter's reference names, cut at the first space
+        ref_short = [n.split(" ")[0].encode() for n in index.ref_names]
+        self._rname_offsets = np.zeros(len(ref_short) + 1, np.int64)
+        np.cumsum([len(x) for x in ref_short], out=self._rname_offsets[1:])
+        self._rnames = np.frombuffer(b"".join(ref_short), np.uint8)
         self.stage = no_stage
 
     # ------------------------------------------------------------------
@@ -276,7 +328,7 @@ class BucketMapPipeline:
                 counts = host["counts"][: e - s]
                 reads_with_cand[seg_read[s + np.nonzero(
                     counts.sum(axis=1) > 0)[0]]] = True
-                if self._overflow(host):
+                if host["overflow"]:
                     # lane/output budget overflow (repetitive genomes): redo
                     # the batch split in half; the per-read budget doubles
                     chunks = self._locate_split(stats, batch, seg_read,
@@ -323,13 +375,6 @@ class BucketMapPipeline:
                                            int(votes[i]), bool(orig[i])))
         return per_read, stats
 
-    def _overflow(self, host) -> bool:
-        """Whether a decoded step dropped lanes: valid lanes past its lane
-        budget or accepted lanes past its output capacity."""
-        lv = int(host["local_valid"].max())
-        return (lv > self.device.step_budgets(lv)[0]
-                or bool((host["n_accept"] > host["out_cap"]).any()))
-
     def _run(self, stats, codes, quals, seg_len, s, e) -> dict:
         """Pad segment rows [s, e) to the batch size, run the step and
         decode its result on the host."""
@@ -348,10 +393,8 @@ class BucketMapPipeline:
             vec = vec.cpu().numpy()
         with self.stage("decode"):
             host = self.device.decode_out(vec)
-        dm = self.device
         stats.steps += 1
-        stats.grown_steps += int(dm.step_budgets(
-            int(host["local_valid"].max()))[0] > dm.lane_budget)
+        stats.grown_steps += int(host["grown"])
         return host
 
     def _extract_chunk(self, host, s, e, batch, seg_read, seg_off, seg_len):
@@ -383,7 +426,7 @@ class BucketMapPipeline:
                 continue
             host = self._run(stats, codes, quals, seg_len, a, b)
             stats.split_steps += 1
-            if self._overflow(host) and b - a > 1:
+            if host["overflow"] and b - a > 1:
                 chunks.extend(self._locate_split(stats, batch, seg_read,
                                                  seg_off, seg_len, codes,
                                                  quals, a, b))
@@ -489,61 +532,42 @@ class BucketMapPipeline:
         if self.align:
             chunk, _ = self.locate_arrays(batch, stats)
             t0 = time.perf_counter()
-            self._emit_locations(writer, batch, chunk, qt, stats)
+            self._align_emit(writer, batch, chunk, qt, stats)
             stats.output_seconds += time.perf_counter() - t0
             return
-        q: queue.Queue = queue.Queue(maxsize=4)
-        werr: list[BaseException] = []
 
-        def _writer_loop():
-            while True:
-                chunk = q.get()
-                if chunk is None:
-                    return
-                try:
-                    t0 = time.perf_counter()
-                    self._emit_locations(writer, batch, chunk, qt, stats)
-                    stats.output_seconds += time.perf_counter() - t0
-                except BaseException as e:  # re-raised on the main thread
-                    werr.append(e)
-                    return
+        def merge_emit(chunk):
+            t0 = time.perf_counter()
+            self._merge_emit(writer, batch, chunk, stats)
+            stats.output_seconds += time.perf_counter() - t0
 
-        thr = threading.Thread(target=_writer_loop, name="bmtorch-sam-writer")
-        thr.start()
-        try:
+        with _WriterThread("bmtorch-sam-writer", merge_emit,
+                           self.stage) as out:
             for chunk in self.locate_chunks(batch, stats):
-                if werr:
-                    break
-                with self.stage("handoff"):
-                    q.put(chunk)
-        finally:
-            with self.stage("drain"):
-                q.put(None)
-                thr.join()
-        if werr:
-            raise werr[0]
+                out.put(chunk)
 
-    def _emit_locations(self, writer, batch, chunk, qt, stats):
-        """Merge and write the records of one location chunk: reads with
-        one location pass through, 2-location reads take the vectorized
-        form of the merge, longer runs the literal filter_best_locations.
-        In align mode every location is aligned instead: long reads
-        (> 2*read_len) segment by segment, the others whole."""
-        cfg = self.cfg
-        lr, lbk, loff, lvotes, lorig, lso = chunk
-        if self.align:
-            with self.stage("align"):
-                long_mask = batch.lengths[lr] > 2 * cfg.read_len
-                if long_mask.any():
-                    self._align_long_emit(
-                        writer, batch, lr[long_mask], lbk[long_mask],
-                        loff[long_mask], lorig[long_mask], lso[long_mask],
-                        qt, stats)
-                if not long_mask.all():
-                    sm = ~long_mask
-                    self._align_stream_emit(writer, batch, lr[sm], lbk[sm],
-                                            loff[sm], lorig[sm], qt, stats)
-            return
+    def _align_emit(self, writer, batch, chunk, qt, stats):
+        """Align every location of a batch and write the records: long
+        reads (> 2*read_len) segment by segment, the others whole."""
+        lr, lbk, loff, _, lorig, lso = chunk
+        with self.stage("align"):
+            long_mask = batch.lengths[lr] > 2 * self.cfg.read_len
+            if long_mask.any():
+                self._align_long_emit(
+                    writer, batch, lr[long_mask], lbk[long_mask],
+                    loff[long_mask], lorig[long_mask], lso[long_mask],
+                    qt, stats)
+            if not long_mask.all():
+                sm = ~long_mask
+                self._align_stream_emit(writer, batch, lr[sm], lbk[sm],
+                                        loff[sm], lorig[sm], qt, stats)
+
+    def _merge_emit(self, writer, batch, chunk, stats):
+        """Merge and write the records of one location chunk (align-free):
+        reads with one location pass through, 2-location reads take the
+        vectorized form of the merge, longer runs the literal
+        filter_best_locations."""
+        lr, lbk, loff, lvotes, lorig, _ = chunk
         with self.stage("merge"):
             rec_read, rec_bucket, rec_off, rec_votes, rec_orig = \
                 self._merge(batch, lr, lbk, loff, lvotes, lorig)
@@ -790,33 +814,15 @@ class BucketMapPipeline:
     def _align_stream_emit(self, writer, batch, lr, lbk, loff, lorig, qt,
                            stats):
         """Align the locations of reads up to 2*read_len and write their
-        records as sub-batches land, on a writer thread. MAPQ is 60 +
+        records as sub-batches land, on the align-emit thread. MAPQ is 60 +
         score as the reference's size_t: scores below -60 wrap (mod 256)
         and bypass the threshold, with CIGAR '*'."""
         if not len(lr):
             return
         bucket_sam_off = self._bucket_sam_offset
-        wq: queue.Queue = queue.Queue(maxsize=4)
-        werr: list[BaseException] = []
-
-        def _writer_loop():
-            # after a write failure keep draining to the sentinel, so the
-            # producer never blocks on the bounded queue and sees werr
-            failed = False
-            while True:
-                job = wq.get()
-                if job is None:
-                    return
-                if failed:
-                    continue
-                try:
-                    self._emit_records(writer, batch, *job)
-                except BaseException as e:  # re-raised on the main thread
-                    werr.append(e)
-                    failed = True
-
-        thr = threading.Thread(target=_writer_loop, name="bmtorch-align-emit")
-        thr.start()
+        out = _WriterThread(
+            "bmtorch-align-emit",
+            lambda job: self._emit_records(writer, batch, *job), self.stage)
 
         def emit(s, e, scores, begins, cbuf, coffs):
             mapq = 60 + scores.astype(np.int64)
@@ -844,27 +850,18 @@ class BucketMapPipeline:
             stats.aligned_pairs += e - s
             stats.records_wrapped += int(wrapped.sum())
             stats.records_below_quality += e - s - len(kidx)
-            if werr:
-                raise werr[0]
-            with self.stage("handoff"):
-                wq.put((rec_read, rec_flag, rec_bucket, rec_pos0, rec_mapq,
-                        (kbuf, koffs)))
+            out.put((rec_read, rec_flag, rec_bucket, rec_pos0, rec_mapq,
+                     (kbuf, koffs)))
 
         lri = lr.astype(np.int32)
         # in a batch with long reads the code matrix is as wide as the
         # longest; these reads are <= 2*read_len
         qc = batch.codes[lri]
         qc = np.ascontiguousarray(qc[:, :min(qc.shape[1], 2 * self.cfg.read_len)])
-        try:
+        with out:
             self.aligner.align_batch_stream(
                 qc, batch.lengths[lri], lbk.astype(np.int32),
                 loff.astype(np.int32), ~lorig, emit)
-        finally:
-            with self.stage("drain"):
-                wq.put(None)
-                thr.join()
-        if werr:
-            raise werr[0]
 
     def _emit_records(self, writer, batch, rec_read, rec_flag, rec_bucket,
                       rec_pos0, rec_mapq, rec_cigar):
@@ -879,16 +876,12 @@ class BucketMapPipeline:
             np.cumsum([len(c) for c in rec_cigar], out=offs[1:])
             rec_cigar = (b"".join(rec_cigar), offs)
         if native.available() and len(rec_read):
-            ref_short = [n.split(" ")[0].encode() for n in self.index.ref_names]
-            rnames_buf = b"".join(ref_short)
-            rname_offsets = np.zeros(len(ref_short) + 1, np.int64)
-            np.cumsum([len(x) for x in ref_short], out=rname_offsets[1:])
             rid = self.index.bucket_ref[np.asarray(rec_bucket, np.int64)]
             rr = np.asarray(rec_read, np.int32)
             out = native.format_sam_records(
                 rr, batch.id_offsets, np.ascontiguousarray(batch.ids_buf, np.uint8),
                 np.asarray(rec_flag, np.int32), rid.astype(np.int32),
-                rname_offsets, np.frombuffer(rnames_buf, np.uint8),
+                self._rname_offsets, self._rnames,
                 np.asarray(rec_pos0, np.int64), np.asarray(rec_mapq, np.int32),
                 (np.zeros(len(rec_read) + 1, np.int64) if rec_cigar is None
                  else rec_cigar[1]),
@@ -898,8 +891,7 @@ class BucketMapPipeline:
                 batch.seq_ascii, batch.qual_ascii)
             if out is not None:
                 with self.stage("sam_write"):
-                    writer._f.flush()
-                    writer._f.buffer.write(out)
+                    writer.write_bytes(out)
                 return
         bucket_names = self.index.bucket_names
         with self.stage("sam_write"):

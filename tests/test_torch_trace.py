@@ -6,7 +6,8 @@ thread (the caller's, the FASTQ reader's and the SAM writer's), once per
 batch or dispatch chunk and never per read; the caller's spans only
 nest; the SAM is byte for byte the same with and without the hook; the
 dispatch stage's CPU seconds lie within its wall time; the caller's
-wait for a slowed reader or writer falls inside its spans. Each of the
+wait for a slowed reader or writer falls inside its spans; a failed
+write is raised on the caller in both output modes. Each of the
 benchmark's readers of these spans (`perfbench/metrics/pipeline.*`),
 fed a made context, gives the value worked out by hand, and nothing
 where the program left no span for it. The world is the port's own
@@ -25,7 +26,7 @@ import pytest
 
 from bucketmap_tpu_torch.config import MapperConfig
 from bucketmap_tpu_torch.index.builder import build_index
-from bucketmap_tpu_torch.io.fastq import iter_fastq_batches
+from bucketmap_tpu_torch.io.fastq import iter_fastq_batches, read_fastq
 from bucketmap_tpu_torch.mapper.pipeline import BucketMapPipeline
 from bucketmap_tpu_torch.sim.simulator import ShortReadSimulator, repeat_genome
 from bucketmap_tpu_torch.utils.debug import no_stage
@@ -185,8 +186,8 @@ def test_a_slow_thread_shows_in_the_callers_spans(world, monkeypatch, slow):
         monkeypatch.setattr(fastq_mod, "parse_fastq", lambda *a, **k: (
             time.sleep(delay), parse(*a, **k))[1])
     else:
-        emit = pipe._emit_locations
-        monkeypatch.setattr(pipe, "_emit_locations", lambda *a: (
+        emit = pipe._merge_emit
+        monkeypatch.setattr(pipe, "_merge_emit", lambda *a: (
             time.sleep(delay), emit(*a))[1])
     rec = Recorder()
     pipe.stage = rec
@@ -197,6 +198,36 @@ def test_a_slow_thread_shows_in_the_callers_spans(world, monkeypatch, slow):
                 if name in ("wait_reads", "handoff", "drain")) / 1e9
     assert waits > delay
     assert _uncovered_s(rec.spans, t0, t1) < 0.25 * delay * n
+
+
+@pytest.mark.parametrize("align", [False, True], ids=["align-free", "align"])
+def test_a_failed_write_raises_and_never_blocks(world, monkeypatch, align):
+    """A write that fails on the SAM writer (align-free) or the align-emit
+    thread, while the caller still has chunks or sub-batches to hand over
+    (8 dispatch chunks of 32 reads), is raised by map_reads; nothing waits
+    on a queue that nobody takes from."""
+    d, index, fastq = world
+    pipe = BucketMapPipeline(index, device="cpu", align=align, batch_size=32,
+                             pair_batch=64)
+
+    def failing_write(*a):
+        time.sleep(0.5)
+        raise OSError("the SAM's disk is full")
+    monkeypatch.setattr(pipe, "_emit_records", failing_write)
+    batch = read_fastq(fastq).head(250)
+    raised = []
+
+    def run():
+        try:
+            pipe.map_reads(batch, d / f"failed_{align}.sam")
+        except Exception as e:
+            raised.append(e)
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    th.join(20)
+    assert not th.is_alive(), "map_reads blocked after a failed write"
+    assert len(raised) == 1 and isinstance(raised[0], OSError), raised
 
 
 def test_default_hook_is_a_null_context(world):
