@@ -18,6 +18,13 @@ import numpy as np
 from bucketmap_tpu_torch.ops.host_encoding import _ASCII_TO_CODE
 from bucketmap_tpu_torch.utils.debug import no_stage
 
+# bytes iter_fastq_batches reads from the stream at a time
+READ_BLOCK = 8 << 20
+# the bytes bytes.strip() takes away: a last piece of only these is no
+# chunk
+_BLANK = np.zeros(256, bool)
+_BLANK[list(b" \t\n\r\x0b\x0c")] = True
+
 
 @dataclasses.dataclass
 class ReadBatch:
@@ -88,10 +95,12 @@ def read_fastq(path: str | os.PathLike, max_len: int | None = None,
     return parse_fastq(data, max_len=max_len, use_native=use_native)
 
 
-def parse_fastq(data: bytes, max_len: int | None = None,
+def parse_fastq(data, max_len: int | None = None,
                 use_native: bool = True) -> ReadBatch:
-    """Parse one FASTQ byte buffer into a ReadBatch (the body of
-    read_fastq, factored out for the streaming iterator)."""
+    """Parse one FASTQ buffer (bytes, or a contiguous uint8 view, read in
+    place) into a ReadBatch (the body of read_fastq, factored out for the
+    streaming iterator). No array of the batch shares memory with
+    `data`."""
     if use_native:
         from bucketmap_tpu_torch.io import native
         res = native.parse_fastq_bytes(data, max_len=max_len)
@@ -101,12 +110,13 @@ def parse_fastq(data: bytes, max_len: int | None = None,
                              lengths=lengths, seq_ascii=seq_ascii,
                              qual_ascii=qual_ascii, ids_buf=ids_buf,
                              id_offsets=id_offsets)
-    if data.endswith(b"\n"):
-        data = data[:-1]
+    buf = np.frombuffer(data, dtype=np.uint8)
+    if len(buf) and buf[-1] == ord("\n"):
+        buf = buf[:-1]
     # Line index via newline scan (no per-read python loop for the payload).
-    nl = np.flatnonzero(np.frombuffer(data, dtype=np.uint8) == ord("\n"))
+    nl = np.flatnonzero(buf == ord("\n"))
     starts = np.concatenate([[0], nl + 1])
-    ends = np.concatenate([nl, [len(data)]])
+    ends = np.concatenate([nl, [len(buf)]])
     nlines = len(starts)
     if nlines % 4 != 0:
         raise ValueError(f"FASTQ line count {nlines} not a multiple of 4")
@@ -119,7 +129,6 @@ def parse_fastq(data: bytes, max_len: int | None = None,
         raise ValueError("FASTQ sequence/quality length mismatch")
     L = int(lengths.max()) if max_len is None else int(max_len)
 
-    buf = np.frombuffer(data, dtype=np.uint8)
     # gather: row i, col j  <- buf[seq_s[i] + j], masked by length
     col = np.arange(L)
     idx = seq_s[:, None] + col[None, :]
@@ -154,7 +163,7 @@ def iter_fastq_batches(path: str | os.PathLike,
                        max_len: int | None = None,
                        use_native: bool = True,
                        bytes_per_batch: int = 128 << 20,
-                       stage=no_stage):
+                       stage=no_stage, stats=None):
     """Stream a FASTQ as ReadBatch chunks of `reads_per_batch` reads
     (the last one smaller), holding ~one chunk of file bytes at a time.
 
@@ -164,51 +173,84 @@ def iter_fastq_batches(path: str | os.PathLike,
     Streaming parse + map + emit per chunk is the memory story: peak
     host residency is one chunk being mapped plus one being written.
 
+    The stream is read in READ_BLOCK blocks into one reused buffer, and
+    after each block the chunks it completes are cut and parsed in place.
     Record boundaries: a FASTQ record is exactly 4 lines, so the cut
-    point after k complete records is the byte after the 4k-th newline —
-    found with one numpy newline scan per accumulated block run.
+    point after k complete records is the byte after the 4k-th newline,
+    found by the host library's cut (numpy's newline scan without it),
+    which scans each byte once.
 
     `bytes_per_batch` also caps a chunk's FILE bytes, so long-read files
     (7.5 kb+ records) chunk by volume instead of record count — a 100k
     x 7.5 kb file as one "chunk" would both blow host RSS (4 dense
     (n, max_len) matrices) and serialize its whole parse ahead of
-    mapping.
+    mapping: once the pending bytes reach it, after a block, every
+    complete record pending makes the chunk. The buffer holds at most
+    one chunk's bytes plus one block.
 
     `stage(name)` is entered as "parse" around each chunk's parse_fastq
-    (the pipeline's stage hook; nothing by default).
+    (the pipeline's stage hook; nothing by default). Where `stats` is
+    given (a MapStats), each chunk adds 1 to its `parse_chunks`, and to
+    its `parse_native_chunks` where the host library parsed it.
     """
+    from bucketmap_tpu_torch.io import native
+    use_native = use_native and native.available()
     target_nl = 4 * reads_per_batch
-    pending: list[bytes] = []
-    pending_nl = 0
-    pending_bytes = 0
+    buf = np.empty(0, np.uint8)
+    # the pending bytes are buf[start:end]; buf[start:scanned] holds
+    # `seen` newlines, and no cut lies before `scanned`
+    start = scanned = end = seen = 0
+
+    def cut(lo: int, want: int) -> tuple[int, int]:
+        """(newlines of buf[lo:end] counted up to `want`, the byte after
+        the last one counted)"""
+        view = buf[lo:end]
+        found = native.fastq_cut(view, want) if use_native else None
+        if found is not None:
+            got, after = found
+        else:
+            nl = np.flatnonzero(view == ord("\n"))[:want]
+            got, after = len(nl), (int(nl[-1]) + 1 if len(nl) else 0)
+        return got, lo + after
+
+    def parse(lo: int, hi: int) -> ReadBatch:
+        with stage("parse"):
+            batch = parse_fastq(buf[lo:hi], max_len=max_len,
+                                use_native=use_native)
+        if stats is not None:
+            stats.parse_chunks += 1
+            stats.parse_native_chunks += use_native
+        return batch
+
     with open(path, "rb") as f:
         while True:
-            block = f.read(64 << 20)
-            if not block:
+            rest = end - start
+            if rest + READ_BLOCK > len(buf):
+                grown = np.empty(max(2 * len(buf), rest + READ_BLOCK),
+                                 np.uint8)
+                grown[:rest] = buf[start:end]
+                buf = grown
+            elif start:
+                buf[:rest] = buf[start:end]
+            scanned -= start
+            start, end = 0, rest
+            n = f.readinto(memoryview(buf)[end:end + READ_BLOCK])
+            if not n:
                 break
-            pending.append(block)
-            pending_nl += block.count(b"\n")
-            pending_bytes += len(block)
-            while (pending_nl >= target_nl
-                   or (pending_bytes >= bytes_per_batch
-                       and pending_nl >= 4)):
-                data = b"".join(pending)
-                nl = np.flatnonzero(
-                    np.frombuffer(data, dtype=np.uint8) == ord("\n"))
-                k = min(reads_per_batch, len(nl) // 4)
-                cut = int(nl[4 * k - 1]) + 1
-                with stage("parse"):
-                    batch = parse_fastq(data[:cut], max_len=max_len,
-                                        use_native=use_native)
-                yield batch
-                tail = data[cut:]
-                pending = [tail] if tail else []
-                pending_nl = len(nl) - 4 * k
-                pending_bytes = len(tail)
-    if pending:
-        data = b"".join(pending)
-        if data.strip():
-            with stage("parse"):
-                batch = parse_fastq(data, max_len=max_len,
-                                    use_native=use_native)
-            yield batch
+            end += n
+            while True:
+                got, at = cut(scanned, target_nl - seen)
+                if seen + got < target_nl:
+                    seen += got
+                    scanned = end
+                    break
+                yield parse(start, at)
+                start = scanned = at
+                seen = 0
+            if end - start >= bytes_per_batch and seen >= 4:
+                _, at = cut(start, seen - seen % 4)
+                yield parse(start, at)
+                start = at
+                seen %= 4
+    if end > start and not _BLANK[buf[start:end]].all():
+        yield parse(start, end)

@@ -177,6 +177,10 @@ class MapStats:
     steps: int = 0
     grown_steps: int = 0
     split_steps: int = 0
+    # FASTQ chunks the reader parsed (map_fastq), and of them those the
+    # host library parsed (the rest, numpy's fallback)
+    parse_chunks: int = 0
+    parse_native_chunks: int = 0
 
 
 class BucketMapPipeline:
@@ -454,7 +458,7 @@ class BucketMapPipeline:
             try:
                 for b in iter_fastq_batches(fastq_path,
                                             reads_per_batch=reads_per_chunk,
-                                            stage=self.stage):
+                                            stage=self.stage, stats=stats):
                     while not stop.is_set():
                         try:
                             q.put(b, timeout=0.25)

@@ -7,6 +7,7 @@ index_from_arrays. One subprocess imports every module of the port and
 chip_smoke.py and finds neither jax nor the JAX package loaded."""
 
 import argparse
+import ctypes
 import dataclasses
 import os
 import subprocess
@@ -152,6 +153,306 @@ def test_fastq_parse_matches(use_native, max_len, tmp_path):
     for g, w in zip(*batches):
         np.testing.assert_array_equal(g.codes, w.codes)
         assert g.ids == w.ids
+
+
+# The reader's byte work: the table-driven native parse against the
+# reference parse it replaced (the JAX package's csrc/bmtpu_io.cpp, built
+# apart), and the record cut against the rule it keeps.
+
+_ARRAYS = ("codes", "quals", "lengths", "seq_ascii", "qual_ascii",
+           "ids_buf", "id_offsets")
+
+
+@pytest.fixture(scope="module")
+def reference_parse(tmp_path_factory):
+    """parse(data, max_len) -> the arrays of parse_fastq_bytes, through
+    the C++ parse of csrc/bmtpu_io.cpp (the per-byte `switch` one),
+    built into a test directory; ValueError where its stat or parse
+    returns -1."""
+    so = tmp_path_factory.mktemp("reference_io") / "libreference_io.so"
+    subprocess.run(["g++", "-O2", "-fPIC", "-shared", "-o", str(so),
+                    os.path.join(REPO, "csrc", "bmtpu_io.cpp")],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    i64, i64_out = ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)
+    u8p = np.ctypeslib.ndpointer(np.uint8)
+    lib.bmtpu_fastq_stat.restype = i64
+    lib.bmtpu_fastq_stat.argtypes = [ctypes.c_char_p, i64, i64_out, i64_out]
+    lib.bmtpu_fastq_parse.restype = i64
+    lib.bmtpu_fastq_parse.argtypes = [
+        ctypes.c_char_p, i64, i64, u8p, u8p, u8p, u8p,
+        np.ctypeslib.ndpointer(np.int32), np.ctypeslib.ndpointer(np.int64),
+        u8p, i64]
+
+    def parse(data: bytes, max_len=None):
+        n, ml = ctypes.c_int64(), ctypes.c_int64()
+        if lib.bmtpu_fastq_stat(data, len(data), ctypes.byref(n),
+                                ctypes.byref(ml)) != 0:
+            raise ValueError("malformed FASTQ (reference parser)")
+        n = n.value
+        L = ml.value if max_len is None else max(max_len, ml.value)
+        out = {name: np.zeros((n, L), np.uint8)
+               for name in ("codes", "quals", "seq_ascii", "qual_ascii")}
+        out["lengths"] = np.zeros(n, np.int32)
+        out["id_offsets"] = np.zeros(n + 1, np.int64)
+        ids = np.zeros(len(data), np.uint8)
+        r = lib.bmtpu_fastq_parse(
+            data, len(data), L, out["codes"], out["quals"], out["seq_ascii"],
+            out["qual_ascii"], out["lengths"], out["id_offsets"], ids,
+            len(ids))
+        if r < 0:
+            raise ValueError("malformed FASTQ (reference parser, pass 2)")
+        out["ids_buf"] = ids[:r]
+        return out
+    return parse
+
+
+def _records(rng, n, seq_alphabet, qual_alphabet=range(33, 75),
+             lengths=(1, 160), names=None, nl=b"\n"):
+    """n FASTQ records whose sequence and quality bytes are drawn from
+    the given byte values."""
+    seq_alphabet = np.asarray(list(seq_alphabet), np.uint8)
+    qual_alphabet = np.asarray(list(qual_alphabet), np.uint8)
+    out = []
+    for i in range(n):
+        L = int(rng.integers(*lengths)) if len(lengths) == 2 else lengths[i]
+        seq = rng.choice(seq_alphabet, L).tobytes()
+        qual = rng.choice(qual_alphabet, L).tobytes()
+        name = b"read_%d x" % i if names is None else names[i % len(names)]
+        out.append(b"@" + name + nl + seq + b"\n+\n" + qual + b"\n")
+    return b"".join(out)
+
+
+def _hard_fastq(case: str) -> bytes:
+    rng = np.random.default_rng(list(_HARD).index(case) + 40)
+    every = [c for c in range(256) if c != ord("\n")]
+    if case == "all_byte_values":
+        # each byte value but the newline, in order, then drawn
+        ordered = bytes(every)
+        head = (b"@ordered\n" + ordered + b"\n+\n" + b"I" * len(ordered)
+                + b"\n")
+        return head + _records(rng, 80, every)
+    if case == "lower_case_and_n":
+        return _records(rng, 80, b"ACGTNacgtnRYKMSWryk")
+    if case == "quality_below_33":
+        return _records(rng, 80, b"ACGT", qual_alphabet=every)
+    if case == "crlf_and_empty_names":
+        names = [b"", b"\r", b"r1\r", b"r 2", b"\r\r", b"@", b"+\r"]
+        return (_records(rng, 40, b"ACGTN", names=names)
+                + _records(rng, 40, b"ACGT", names=names, nl=b"\r\n"))
+    if case == "one_base_and_mixed":
+        lengths = [1, 1, 0, 1, 300, 2, 1] + list(rng.integers(1, 400, 73))
+        return _records(rng, 80, b"ACGTN", lengths=lengths)
+    raise KeyError(case)
+
+
+_HARD = ("all_byte_values", "lower_case_and_n", "quality_below_33",
+         "crlf_and_empty_names", "one_base_and_mixed")
+
+
+@pytest.mark.parametrize("max_len", [None, 512])
+@pytest.mark.parametrize("case", _HARD)
+def test_fastq_hard_inputs_parse_as_before(case, max_len, reference_parse):
+    """The table-driven native parse on hard inputs: equal, array for
+    array, to the reference C++ parse, and to the port's and the JAX
+    package's numpy parses; numpy's only difference is a quality byte
+    below 33, whose rank the C++ parses clamp to 0 and numpy wraps."""
+    assert native.available()
+    data = _hard_fastq(case)
+    got = fastq.parse_fastq(data, max_len=max_len)
+    want = reference_parse(data, max_len)
+    for name in _ARRAYS:
+        x = getattr(got, name)
+        assert x.dtype == want[name].dtype, name
+        np.testing.assert_array_equal(x, want[name], err_msg=name)
+    q = got.qual_ascii.astype(np.int16)
+    np.testing.assert_array_equal(got.quals, np.where(q >= 33, q - 33, 0))
+    col = np.arange(got.codes.shape[1])
+    low = (q < 33) & (col[None, :] < got.lengths[:, None])
+    for other in (fastq.parse_fastq(data, max_len=max_len, use_native=False),
+                  jax_fastq.parse_fastq(data, max_len=max_len,
+                                        use_native=False)):
+        for name in _ARRAYS:
+            x, y = getattr(got, name), getattr(other, name)
+            if name == "quals":
+                x, y = x[~low], y[~low]
+            np.testing.assert_array_equal(x, y, err_msg=name)
+        np.testing.assert_array_equal(other.quals[low], (q[low] - 33) % 256)
+    assert (case == "quality_below_33") == bool(low.any())
+
+
+_GOOD = b"@r1\nACGT\n+\nIIII\n@r2\nAC\n+\nII\n"
+
+
+@pytest.mark.parametrize("data,numpy_checks", [
+    (b"Xr1\nACGT\n+\nIIII\n", False),            # no '@'
+    (b"@r1\nACGT\n-\nIIII\n", False),            # no '+'
+    (b"@r0\nACGT\n+\nIII\n" + _GOOD, True),      # quality short
+    (_GOOD + b"@r3\nACGT\n+\nIIIII\n", True),    # quality long
+    (_GOOD + b"@r3\nACGT\n+\n", True),           # three lines
+    (_GOOD + b"@r3\nACGT\n+\nII", True),         # cut in its quality
+    (_GOOD + b"@r3", True),                      # cut in its header
+    (_GOOD + b"\n", True),                       # a trailing blank line
+], ids=["no_at", "no_plus", "short_quality", "long_quality",
+        "three_lines", "cut_quality", "cut_header", "blank_line"])
+def test_fastq_malformed_records_raise(data, numpy_checks, reference_parse):
+    """Malformed records raise ValueError from the native parse, as from
+    the reference C++ parse; numpy's parse checks the line count and the
+    quality lengths, not the '@' and '+'."""
+    with pytest.raises(ValueError):
+        reference_parse(data)
+    with pytest.raises(ValueError):
+        fastq.parse_fastq(data)
+    if numpy_checks:
+        with pytest.raises(ValueError):
+            fastq.parse_fastq(data, use_native=False)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_fastq_native_parse_as_before_on_mutated_input(seed,
+                                                       reference_parse):
+    """Valid records with a few bytes replaced, inserted, deleted or the
+    end cut off: the native parse accepts what the reference C++ parse
+    accepts, with the same arrays, and raises ValueError where it
+    fails."""
+    rng = np.random.default_rng(seed)
+    base = bytearray(_records(rng, 12, b"ACGTN", lengths=(1, 9)))
+    alphabet = np.frombuffer(b"@+\n\rACI", np.uint8)
+    outcomes = set()
+    for _ in range(300):
+        data = bytearray(base)
+        for _ in range(int(rng.integers(1, 4))):
+            if not data:
+                break
+            at = int(rng.integers(0, len(data)))
+            op = int(rng.integers(0, 4))
+            if op == 0:
+                data[at] = int(rng.choice(alphabet))
+            elif op == 1:
+                data.insert(at, int(rng.choice(alphabet)))
+            elif op == 2:
+                del data[at]
+            else:
+                del data[at:]
+        data = bytes(data)
+        try:
+            want = reference_parse(data)
+        except ValueError:
+            with pytest.raises(ValueError):
+                fastq.parse_fastq(data)
+            outcomes.add("raised")
+            continue
+        got = fastq.parse_fastq(data)
+        for name in _ARRAYS:
+            np.testing.assert_array_equal(getattr(got, name), want[name],
+                                          err_msg=name)
+        outcomes.add("parsed")
+    assert outcomes == {"raised", "parsed"}
+
+
+def _chunks_as_before(data: bytes, reads_per_batch: int,
+                      bytes_per_batch: int, block: int) -> list[bytes]:
+    """The reader's cut rule, plainly: after each block of the stream,
+    cut while the pending bytes hold reads_per_batch records, or reach
+    bytes_per_batch and hold a record (then all their whole records
+    make the chunk); the last piece is a chunk unless it is blank."""
+    target_nl = 4 * reads_per_batch
+    pending, chunks = b"", []
+    for i in range(0, len(data), block):
+        pending += data[i:i + block]
+        while (pending.count(b"\n") >= target_nl
+               or (len(pending) >= bytes_per_batch
+                   and pending.count(b"\n") >= 4)):
+            nl = [j for j, c in enumerate(pending) if c == ord("\n")]
+            k = min(reads_per_batch, len(nl) // 4)
+            cut = nl[4 * k - 1] + 1
+            chunks.append(pending[:cut])
+            pending = pending[cut:]
+    if pending.strip():
+        chunks.append(pending)
+    return chunks
+
+
+_CUT_CASES = {
+    "one_read": dict(reads=1),
+    "three_reads": dict(reads=3),
+    "fifty_reads": dict(reads=50),
+    "byte_cap": dict(reads=50, cap=1_400, block=700),
+    "split_across_blocks": dict(reads=7, block=97),
+    "no_final_newline": dict(reads=50, cut_last=True),
+    "empty_file": dict(reads=3, empty=True),
+    "trailing_blank_line": dict(reads=3, blank=True),
+    "trailing_blank_line_in_chunk": dict(reads=50, blank=True),
+}
+
+
+@pytest.mark.parametrize("use_native", [True, False],
+                         ids=["native", "numpy"])
+@pytest.mark.parametrize("case", list(_CUT_CASES))
+def test_reader_chunks_follow_the_cut_rule(case, use_native, tmp_path,
+                                           monkeypatch):
+    """iter_fastq_batches gives the chunks of the cut rule, read block by
+    block (READ_BLOCK set small where a case says), each with the arrays
+    of parse_fastq on the chunk's bytes; a chunk that does not parse
+    raises ValueError where it comes."""
+    c = _CUT_CASES[case]
+    data = b"" if c.get("empty") else _fastq_bytes(7, n=180, crlf=True)
+    if c.get("cut_last"):
+        data = data[:-1]
+    if c.get("blank"):
+        data += b"\n"
+    block = c.get("block", fastq.READ_BLOCK)
+    monkeypatch.setattr(fastq, "READ_BLOCK", block)
+    cap = c.get("cap", 128 << 20)
+    path = tmp_path / "r.fastq"
+    path.write_bytes(data)
+    want = []
+    for chunk in _chunks_as_before(data, c["reads"], cap, block):
+        try:
+            want.append(fastq.parse_fastq(chunk, use_native=use_native))
+        except ValueError:
+            want.append(None)
+            break
+    got = []
+    try:
+        for b in fastq.iter_fastq_batches(path, reads_per_batch=c["reads"],
+                                          use_native=use_native,
+                                          bytes_per_batch=cap):
+            got.append(b)
+    except ValueError:
+        got.append(None)
+    assert len(got) == len(want)
+    failed = bool(want) and want[-1] is None
+    assert failed == case.startswith("trailing_blank_line_in")
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+            continue
+        for name in _ARRAYS:
+            np.testing.assert_array_equal(getattr(g, name), getattr(w, name),
+                                          err_msg=name)
+    sizes = [b.num_reads for b in got if b is not None]
+    assert sum(sizes) == (0 if c.get("empty") else 180) or failed
+    if "cap" in c:
+        assert max(sizes) < c["reads"]
+
+
+@pytest.mark.parametrize("library", [True, False], ids=["native", "numpy"])
+def test_reader_counts_native_parses(library, tmp_path, monkeypatch):
+    """The reader counts each chunk in MapStats.parse_chunks, and in
+    parse_native_chunks those the host library parsed: all of them with
+    the library, none where it does not load."""
+    from bucketmap_tpu_torch.mapper.pipeline import MapStats
+    if not library:
+        monkeypatch.setattr(native, "_load", lambda: None)
+    path = tmp_path / "r.fastq"
+    path.write_bytes(_fastq_bytes(3) * 3)
+    stats = MapStats()
+    got = list(fastq.iter_fastq_batches(path, reads_per_batch=50,
+                                        stats=stats))
+    assert [b.num_reads for b in got] == [50, 50, 50, 30]
+    assert stats.parse_chunks == 4
+    assert stats.parse_native_chunks == (4 if library else 0)
 
 
 def test_read_batch_from_arrays_and_head():

@@ -123,6 +123,15 @@ def test_spans_once_a_batch_or_a_chunk(traced):
     assert sum(n.values()) < READS / 5
 
 
+def test_reader_counts_its_chunks(traced):
+    """map_fastq's reader counts each chunk it parsed, all of them by the
+    host library, which builds here."""
+    stats = traced["stats"]
+    assert stats.parse_chunks == -(-READS // PER_CHUNK)
+    assert stats.parse_native_chunks == stats.parse_chunks
+    assert traced["plain"].parse_chunks == stats.parse_chunks
+
+
 def test_main_thread_spans_only_nest(traced):
     main = sorted(((t0, -t1, name) for th, name, t0, t1 in traced["spans"]
                    if th == "main"))
@@ -288,7 +297,8 @@ def _ctx(drop=(), stats_drop=()):
                        for th, layer, name, a, b in SPANS
                        if name not in drop)
     stats = {"num_reads": 2_000_000, "output_seconds": 4.0,
-             "dispatch_cpu_seconds": 0.2}
+             "dispatch_cpu_seconds": 0.2, "parse_chunks": 16,
+             "parse_native_chunks": 12}
     for k in stats_drop:
         del stats[k]
     return {"clock": clock, "stats": stats, "reads": 2_000_000,
@@ -306,6 +316,10 @@ def _ctx(drop=(), stats_drop=()):
     # 0.2 CPU s of 0.8 s of dispatch; the parent's MapStats has no such
     # counter
     ("pipeline.dispatch_cpu_pct", 25.0, (), ("dispatch_cpu_seconds",)),
+    # 12 of 16 chunks parsed by the host library; the parent's MapStats
+    # has neither counter
+    ("pipeline.parse_native_pct", 75.0, (),
+     ("parse_chunks", "parse_native_chunks")),
 ])
 def test_reader_of_the_spans(metric, want, drop, stats_drop):
     read = spec_mod.reader(REPO, metric)
